@@ -1,0 +1,196 @@
+"""Pipeline orchestration + CLI.
+
+Counterpart of ``vit_colmap_tpu/pipeline/run_pipeline.py``:
+``Pipeline(config).run(image_dir, output_dir, db_path)`` extracts features
+into a COLMAP database and matches every pair, with the same flags and the
+same per-stage report.  Ported so far: the ``vit`` extractor and matching.
+Verification and reconstruction are not ported yet and must be skipped
+(``--skip-verification --skip-reconstruction``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from pathlib import Path
+from typing import Optional
+
+from vit_colmap_tpu_torch.database import ColmapDatabase
+from vit_colmap_tpu_torch.device import resolve_device
+from vit_colmap_tpu_torch.utils.config import Config
+
+logger = logging.getLogger(__name__)
+
+NOT_PORTED = "{} is not ported yet (see ROADMAP.md); pass {}"
+
+
+class Pipeline:
+    def __init__(self, config: Optional[Config] = None, device=None):
+        self.config = config or Config()
+        self.device = resolve_device(device)
+        self._extractors: dict[tuple, object] = {}
+
+    def _check_ported(self) -> None:
+        c = self.config
+        if c.extractor.extractor_type != "vit":
+            raise NotImplementedError(
+                f"extractor {c.extractor.extractor_type!r} is not ported yet "
+                "(only 'vit'); see ROADMAP.md"
+            )
+        if c.do_reconstruction:
+            raise NotImplementedError(
+                NOT_PORTED.format("reconstruction", "--skip-reconstruction")
+            )
+        if c.do_matching and c.matching.do_verification:
+            raise NotImplementedError(
+                NOT_PORTED.format("geometric verification", "--skip-verification")
+            )
+
+    def _make_extractor(self):
+        ecfg = self.config.extractor
+        key = tuple(sorted((k, str(v)) for k, v in vars(ecfg).items()))
+        if key not in self._extractors:
+            from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
+
+            self._extractors[key] = ViTExtractor(
+                weights_path=ecfg.vit_weights_path,
+                backbone=ecfg.backbone,
+                max_keypoints=ecfg.max_keypoints,
+                image_batch=ecfg.image_batch,
+                pca_path=ecfg.pca_path,
+                transfer_format=ecfg.transfer_format,
+                quantize=ecfg.quantize,
+                device=self.device,
+            )
+        return self._extractors[key]
+
+    def run(
+        self,
+        image_dir: Path,
+        output_dir: Path,
+        db_path: Path,
+        dataset: Optional[str] = None,
+        scene: Optional[str] = None,
+        results_dir: Optional[Path] = None,
+    ) -> Optional[dict]:
+        self._check_ported()
+        if dataset and scene and results_dir:
+            raise NotImplementedError("metrics export is not ported yet")
+        image_dir, output_dir, db_path = Path(image_dir), Path(output_dir), Path(db_path)
+        output_dir.mkdir(parents=True, exist_ok=True)
+        db_path.parent.mkdir(parents=True, exist_ok=True)
+        logger.info("Device: %s", self.device)
+        logger.info("\n%s", self.config.summary())
+
+        t0 = time.perf_counter()
+        extractor = self._make_extractor()
+        extractor.extract(
+            image_dir, db_path, self.config.camera.model, self.config.camera.params
+        )
+        t_extract = time.perf_counter() - t0
+        with ColmapDatabase.open_database(db_path) as db:
+            num_images = db.num_images
+        if num_images == 0:
+            logger.error("No images were processed; aborting")
+            return None
+        logger.info(
+            "Extraction: %d images in %.2fs (%.2f img/s)",
+            num_images, t_extract, num_images / max(t_extract, 1e-9),
+        )
+
+        t_match = 0.0
+        if self.config.do_matching:
+            from vit_colmap_tpu_torch.pipeline.match import match_exhaustive
+
+            # ViT descriptors are stored with the signed uint8 encoding.
+            self.config.matching.descriptor_encoding = "signed"
+            t1 = time.perf_counter()
+            match_exhaustive(
+                db_path,
+                self.config.matching,
+                device_descriptors=extractor.device_cache,
+                device=self.device,
+            )
+            t_match = time.perf_counter() - t1
+
+        self._print_summary(db_path, t_extract, t_match)
+        return {
+            "num_images": num_images,
+            "extract_s": round(t_extract, 3),
+            "match_verify_s": round(t_match, 3),
+            "reconstruction_s": 0.0,
+            "total_s": round(t_extract + t_match, 3),
+        }
+
+    def _print_summary(self, db_path: Path, t_extract: float, t_match: float) -> None:
+        with ColmapDatabase.open_database(db_path) as db:
+            logger.info("=" * 60)
+            logger.info("Pipeline summary")
+            logger.info(
+                "  [1] extraction    %.2fs — %d images, %d keypoints",
+                t_extract, db.num_images, db.num_keypoints,
+            )
+            logger.info(
+                "  [2] match+verify  %.2fs — %d matched pairs, %d verified, %d raw matches",
+                t_match, db.num_matched_pairs, db.num_verified_pairs, db.num_matches,
+            )
+            logger.info("=" * 60)
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    ap = argparse.ArgumentParser(
+        description="Run the ViT-COLMAP pipeline on the GPU (PyTorch/CUDA port)"
+    )
+    ap.add_argument("--images", required=True, type=Path)
+    ap.add_argument("--output", required=True, type=Path)
+    ap.add_argument("--db", default=Path("data/intermediate/database.db"), type=Path)
+    ap.add_argument("--model", default=None, type=Path)
+    ap.add_argument("--camera-model", default="SIMPLE_PINHOLE", type=str)
+    ap.add_argument("--camera-params", default=None, type=str,
+                    help="Comma-separated camera params override")
+    ap.add_argument("--skip-matching", action="store_true")
+    ap.add_argument("--skip-reconstruction", action="store_true")
+    ap.add_argument("--skip-verification", action="store_true")
+    ap.add_argument("--verbose", "-v", action="store_true")
+    ap.add_argument("--use-colmap-sift", action="store_true")
+    ap.add_argument(
+        "--extractor", type=str, default=None,
+        choices=["vit", "trainable_vit", "colmap_sift", "sift", "dummy", "hybrid"],
+    )
+    ap.add_argument("--vit-weights", type=Path, default=None)
+    ap.add_argument("--backbone", type=str, default=None)
+    ap.add_argument("--max-keypoints", type=int, default=None)
+    ap.add_argument("--sfm-max-keypoints", type=int, default=None)
+    ap.add_argument("--pca-path", type=Path, default=None,
+                    help="persisted PCA projection (.npz), fit+saved on first use")
+    ap.add_argument("--transfer-format", choices=["rgb", "yuv420", "yuv420c4"],
+                    default=None)
+    ap.add_argument("--quantize", choices=["none", "int8"], default=None)
+    ap.add_argument("--min-num-matches", type=int, default=None)
+    ap.add_argument("--shard-descriptors", action="store_true")
+    ap.add_argument("--dataset", type=str, default=None)
+    ap.add_argument("--scene", type=str, default=None)
+    ap.add_argument("--export-metrics", type=Path, default=None)
+    ap.add_argument("--profile-dir", type=Path, default=None,
+                    help="profiler trace directory (not ported yet)")
+    ap.add_argument("--device", type=str, default=None,
+                    help="torch device (default: cuda; 'cpu' runs the plain "
+                         "PyTorch versions of the kernels)")
+    args = ap.parse_args(argv)
+    if args.profile_dir:
+        raise NotImplementedError("--profile-dir is not ported yet")
+    config = Config.from_args(args)
+    Pipeline(config=config, device=args.device).run(
+        image_dir=args.images,
+        output_dir=args.output,
+        db_path=args.db,
+        dataset=args.dataset,
+        scene=args.scene,
+        results_dir=args.export_metrics,
+    )
+    logger.info("Pipeline complete!")
+
+
+if __name__ == "__main__":
+    main()

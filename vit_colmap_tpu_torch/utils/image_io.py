@@ -1,0 +1,212 @@
+"""Image decoding and resizing without OpenCV or PIL.
+
+Takes the place of ``cv2.imread(...)`` + ``cv2.cvtColor(BGR2RGB)`` and
+``cv2.resize(..., interpolation=cv2.INTER_AREA)`` on the port's path, with
+the standard library (``zlib``) and numpy only:
+
+* PNG: 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced, all five row
+  filters.  Alpha is dropped and gray replicated, as ``cv2.IMREAD_COLOR``
+  does.
+* Binary PPM (P6) and PGM (P5) with maxval <= 255.
+* Anything else (JPEG, interlaced or palette PNG, 16-bit) raises
+  ``NotImplementedError``; a damaged file raises ``ValueError``.
+
+``resize_area`` is ``INTER_AREA`` for downscaling: each output pixel is the
+area-weighted mean of the input pixels its footprint overlaps, built as two
+separable weight matrices.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples per pixel
+
+
+def imread_rgb(path) -> np.ndarray:
+    """Decode an image file into (H, W, 3) uint8 RGB."""
+    data = Path(path).read_bytes()
+    if data.startswith(PNG_SIGNATURE):
+        img = decode_png(data)
+    elif data[:2] in (b"P5", b"P6"):
+        img = decode_pnm(data)
+    elif data[:2] == b"\xff\xd8":
+        raise NotImplementedError(
+            f"{path}: JPEG decoding is not ported yet (PNG and PPM/PGM only)"
+        )
+    else:
+        raise NotImplementedError(f"{path}: unsupported image format")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[-1] in (1, 2):  # gray (+ alpha): replicate, drop alpha
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8 with C samples per pixel."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError("not a PNG file")
+    pos = len(PNG_SIGNATURE)
+    header = None
+    idat = []
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        if pos + 12 + length > len(data):
+            raise ValueError("truncated PNG chunk")
+        kind = data[pos + 4 : pos + 8]
+        body = data[pos + 8 : pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])
+        if zlib.crc32(kind + body) != crc:
+            raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if header is None or not idat:
+        raise ValueError("PNG without IHDR or IDAT")
+    w, h, depth, color, _compression, _filter, interlace = header
+    if interlace != 0:
+        raise NotImplementedError("interlaced PNG is not supported")
+    if depth != 8 or color not in _PNG_CHANNELS:
+        raise NotImplementedError(
+            f"PNG bit depth {depth} / color type {color} is not supported "
+            "(8-bit gray, gray+alpha, RGB, RGBA only)"
+        )
+    c = _PNG_CHANNELS[color]
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"PNG image data: {e}") from e
+    if raw.size != h * (w * c + 1):
+        raise ValueError("PNG image data has the wrong size")
+    rows = raw.reshape(h, w * c + 1)
+    return _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, c))
+
+
+def _unfilter(ftype: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Undo PNG row filters.  ftype: (H,) filter per row; x: (H, W, C)."""
+    if ftype.size and ftype.max() > 4:
+        raise ValueError("PNG row filter type > 4")
+    h, w, c = x.shape
+    if not np.isin(ftype, (3, 4)).any():
+        # None / Sub / Up only: one vectorized step per row.
+        out = np.empty((h, w, c), np.uint8)
+        prev = np.zeros((w, c), np.uint8)
+        for r in range(h):
+            row = x[r]
+            if ftype[r] == 1:
+                row = np.cumsum(row, axis=0, dtype=np.uint32).astype(np.uint8)
+            elif ftype[r] == 2:
+                row = row + prev  # uint8 arithmetic wraps mod 256
+            out[r] = row
+            prev = out[r]
+        return out
+    # Average / Paeth make each pixel depend on its left, upper and
+    # upper-left neighbours: decode along anti-diagonals, all rows at once,
+    # each row with its own filter.  A zero border stands for the pixels
+    # outside the image.
+    out = np.zeros((h + 1, w + 1, c), np.int32)
+    xi = x.astype(np.int32)
+    ft = ftype.astype(np.int32)
+    for k in range(h + w - 1):
+        r = np.arange(max(0, k - w + 1), min(h - 1, k) + 1)
+        cc = k - r
+        a = out[r + 1, cc]  # left
+        b = out[r, cc + 1]  # up
+        ul = out[r, cc]  # upper left
+        p = a + b - ul
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+        f = ft[r][:, None]
+        pred = np.select(
+            [f == 1, f == 2, f == 3, f == 4],
+            [a, b, (a + b) >> 1, paeth],
+            default=0,
+        )
+        out[r + 1, cc + 1] = (xi[r, cc] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
+
+
+def decode_pnm(data: bytes) -> np.ndarray:
+    """Binary PGM (P5) / PPM (P6) bytes -> (H, W, C) uint8."""
+    fields = []
+    pos = 0
+    while len(fields) < 4:
+        while pos < len(data) and data[pos : pos + 1].isspace():
+            pos += 1
+        if data[pos : pos + 1] == b"#":
+            while pos < len(data) and data[pos : pos + 1] not in (b"\n", b"\r"):
+                pos += 1
+            continue
+        start = pos
+        while pos < len(data) and not data[pos : pos + 1].isspace():
+            pos += 1
+        if start == pos:
+            raise ValueError("truncated PNM header")
+        fields.append(data[start:pos])
+    pos += 1  # exactly one whitespace byte ends the header
+    magic = fields[0]
+    w, h, maxval = (int(f) for f in fields[1:])
+    if maxval > 255:
+        raise NotImplementedError("16-bit PNM is not supported")
+    c = 3 if magic == b"P6" else 1
+    pixels = np.frombuffer(data, np.uint8, count=h * w * c, offset=pos)
+    return pixels.reshape(h, w, c)
+
+
+def write_png(path, rgb: np.ndarray) -> None:
+    """Write (H, W, 3) or (H, W) uint8 as an 8-bit PNG with no row filter."""
+    img = np.ascontiguousarray(rgb, dtype=np.uint8)
+    h, w = img.shape[:2]
+    color = 2 if img.ndim == 3 else 0
+    rows = img.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        crc = zlib.crc32(kind + body)
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
+    Path(path).write_bytes(
+        PNG_SIGNATURE
+        + chunk(b"IHDR", ihdr)
+        + chunk(b"IDAT", zlib.compress(raw, 6))
+        + chunk(b"IEND", b"")
+    )
+
+
+def area_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) INTER_AREA weights: output pixel i covers the input
+    interval [i*s, (i+1)*s) with s = n_in / n_out, each input pixel weighted
+    by the length of its overlap, normalized by s."""
+    if n_out > n_in:
+        raise ValueError(f"area resize only downscales ({n_in} -> {n_out})")
+    s = n_in / n_out
+    lo = np.arange(n_out)[:, None] * s
+    hi = lo + s
+    j = np.arange(n_in)[None, :]
+    overlap = np.clip(np.minimum(hi, j + 1) - np.maximum(lo, j), 0.0, None)
+    return overlap / s
+
+
+def resize_area(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H, W, C) uint8 -> (height, width, C) uint8, like ``cv2.resize(img,
+    (width, height), interpolation=cv2.INTER_AREA)`` when downscaling."""
+    h, w = img.shape[:2]
+    if (h, w) == (height, width):
+        return img
+    wy = area_weights(h, height)
+    wx = area_weights(w, width)
+    c = img.shape[2]
+    rows = (wy @ img.reshape(h, w * c).astype(np.float64)).reshape(height, w, c)
+    out = np.tensordot(rows, wx, axes=([1], [1])).transpose(0, 2, 1)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
