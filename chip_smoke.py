@@ -7,19 +7,30 @@ Phases, one flushed line each with elapsed seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: the port's CUDA kernels, one nvcc call, from the sources here;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, in the working dtypes, and known-wrong variants
-   of the plain version against the same bounds (each must fail them);
+3. kernels: each of the five kernels against its plain PyTorch version on
+   the card, at the paths' shapes, in the working dtypes; known-wrong
+   variants of the attention plain versions against the same bounds (each
+   must fail them), and "last column wins" variants of the matchers' plain
+   versions on inputs with ties (each must differ);
 4. slice: the port's main path through ``Pipeline.run`` -- frozen DINOv2
    ViT-B/14 (random weights from a seed) on 8 synthetic 1190 x 1596 PNGs,
    4096 keypoints, COLMAP database, exhaustive matching of the 28 pairs in
-   one batch, verification and reconstruction skipped -- with the kernels'
-   launch counters reset just before and read just after, then checks of
-   the database and of both kernels against the plain path (with the
-   known-wrong variants again);
-5. times: CUDA-event medians of each kernel, its plain version and one
+   one batch, verification and reconstruction skipped -- then checks of the
+   database and of kernels 1 and 2 against the plain path;
+5. paths: the slice's other entry points on the same images and weights:
+   (a) ``ViTExtractor(attn_impl="fixedmax")`` extraction into a database
+   (kernel 3), (b) ``match_exhaustive`` of that database with
+   ``cross_check=False`` (kernel 4), (c) the two-pass cross-check
+   (``fused_cross=False``) against the fused one, (d)
+   ``prepare_int8_descriptors`` + ``match_pairs_int8`` on the database's
+   uint8 descriptors (kernel 5);
+6. times: CUDA-event medians of each kernel, its plain version and one
    PyTorch library call computing the same function, and the pipeline's
    extraction / matching rates on a second, warm run.
+
+Every path (the main one and each of 5a-5d) is driven with the kernels'
+launch counts set to 0 just before it and read just after; each kernel must
+have launched on its path, and the kernels it replaces must not have.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
@@ -50,11 +61,17 @@ NUM_PAIRS = NUM_IMAGES * (NUM_IMAGES - 1) // 2
 PAIR_BATCH = 28  # all 28 pairs of 8 images in one batch
 IMAGE_BATCH = 2  # ExtractorConfig.image_batch default
 HEADS = 12
+# Attention launches of one extraction: the PCA fit over the 8 images, then
+# extraction, each in batches of IMAGE_BATCH, 12 layers per backbone pass.
+BACKBONE_LAYERS = 12 * 2 * math.ceil(NUM_IMAGES / IMAGE_BATCH)
+MATCH_BATCHES = math.ceil(NUM_PAIRS / PAIR_BATCH)
+TOKENS = 1 + (HEIGHT // 14) * (WIDTH // 14)  # 9,691
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside them,
 # HBM bandwidth.  Bounds are stated against these at the card's power limit.
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 # Kernel 1 and its plain version do the same bf16 roundings and differ in
@@ -62,7 +79,9 @@ PEAK_BYTES = 3.35e12
 # one ulp (2^-8 to 2^-7 relative).  Bound: max |kernel - plain| <=
 # ATTN_ULPS * 2^-8 * max |plain|.
 ATTN_ULPS = 4
-MATCH_VALUE_TOL = 1e-6  # best / second; indices must be identical
+MATCH_VALUE_TOL = 1e-6  # kernel 2's best / second; indices must be identical
+# Kernels 4 and 5 repeat their plain versions' float operations in order:
+# identical indices and bit-equal best / second.
 # Patch tokens of a batch of images through 12 layers with kernel 1 vs its
 # plain version.  Each layer can flip activations by one bf16 ulp, and the
 # flips compound through the residual stream.  Bound the RMS of the
@@ -77,8 +96,8 @@ TOKEN_MAX_TOL = 3.5e-2
 # thousands of keys and the token map barely depends on it.
 Q_GAIN = 3.0
 
-# Known-wrong variants of kernel 1 whose readings passed a bound they must
-# fail: collected, and raised at the end so that one run shows them all.
+# Known-wrong variants of kernels 1 and 3 whose readings passed a bound they
+# must fail: collected, and raised at the end so that one run shows them all.
 POWERLESS: list[str] = []
 
 
@@ -178,7 +197,8 @@ def build_phase():
     t = time.perf_counter()
     build.library()
     seconds = time.perf_counter() - t
-    log(f"build: 2 kernels, one nvcc call, {seconds:.1f} s")
+    sources = sorted(p.name for p in build.CSRC_DIR.glob("*.cu"))
+    log(f"build: {', '.join(sources)} (5 kernels), one nvcc call, {seconds:.1f} s")
     return seconds
 
 
@@ -198,27 +218,37 @@ def wrong_first_image(qkv, num_heads: int, sm_scale: float):
     return out.expand(qkv.shape[0], -1, -1).contiguous()
 
 
-def wrong_tail_dropped(qkv, num_heads: int, sm_scale: float):
-    """Known-wrong kernel 1: the plain arithmetic with the last, ragged kv
-    tile of 64 rows left out."""
+def split_heads(qkv, num_heads: int):
+    """(B, N, 3*D) packed qkv -> q, k, v as (B, H, N, 64) views."""
+    B, N, _ = qkv.shape
+    return qkv.reshape(B, N, 3, num_heads, 64).permute(2, 0, 3, 1, 4)
+
+
+def heads_tail_dropped(q, k, v, sm_scale: float):
+    """Known-wrong kernels 1 and 3: the plain arithmetic with the last,
+    ragged kv tile of 64 rows left out."""
     import torch
 
     from vit_colmap_tpu_torch.kernels import attention
 
-    B, N, three_d = qkv.shape
-    D = three_d // 3
+    N = q.shape[2]
     keep = N - (N % 64 or 64)
-    out = torch.empty(B, N, D, dtype=qkv.dtype, device=qkv.device)
-    for h in range(num_heads):
-        cols = slice(64 * h, 64 * h + 64)
-        q = (qkv[..., cols].float() * (sm_scale * attention.LOG2E)).to(qkv.dtype).float()
-        k = qkv[:, :keep, D:][..., cols].float()
-        v = qkv[:, :keep, 2 * D:][..., cols].float()
-        for b in range(B):
-            p = torch.exp2(torch.clamp_max(q[b] @ k[b].T, attention.CLAMP))
+    out = torch.empty_like(q)
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            qs = (q[b, h].float() * (sm_scale * attention.LOG2E)).to(q.dtype).float()
+            p = torch.exp2(torch.clamp_max(qs @ k[b, h, :keep].float().T,
+                                           attention.CLAMP))
             p = p.to(torch.bfloat16).float()
-            out[b, :, cols] = ((p @ v[b]) / p.sum(-1, keepdim=True)).to(qkv.dtype)
+            out[b, h] = ((p @ v[b, h, :keep].float()) / p.sum(-1, keepdim=True)).to(q.dtype)
     return out
+
+
+def wrong_tail_dropped(qkv, num_heads: int, sm_scale: float):
+    """Known-wrong kernel 1: the last, ragged kv tile left out."""
+    B, N, three_d = qkv.shape
+    out = heads_tail_dropped(*split_heads(qkv, num_heads), sm_scale)
+    return out.transpose(1, 2).reshape(B, N, three_d // 3)
 
 
 def wrong_kernels(batch: int):
@@ -254,6 +284,63 @@ def attention_check(B: int, N: int, H: int, seed: int):
     return err
 
 
+def wrong_heads_no_log2e(q, k, v, sm_scale: float):
+    """Known-wrong kernel 3: q scaled without log2(e)."""
+    from vit_colmap_tpu_torch.kernels import attention
+
+    return attention.fixed_max_attention_plain(q, k, v, sm_scale / attention.LOG2E)
+
+
+def wrong_head_zero(q, k, v, sm_scale: float):
+    """Known-wrong kernel 3: every head gets head 0's output (a per-head
+    offset left out)."""
+    from vit_colmap_tpu_torch.kernels import attention
+
+    out = attention.fixed_max_attention_plain(q[:, :1], k[:, :1], v[:, :1], sm_scale)
+    return out.expand(-1, q.shape[1], -1, -1)
+
+
+WRONG_HEAD_MAJOR = {"no log2e": wrong_heads_no_log2e,
+                    "head 0 for all": wrong_head_zero,
+                    "last kv tile dropped": heads_tail_dropped}
+
+
+def head_major_check(B: int, H: int, N: int, d: int, seed: int):
+    """Kernel 3 on head-major bf16 q, k, v against its plain version, and
+    its known-wrong variants against the same bound."""
+    import torch
+
+    from vit_colmap_tpu_torch.kernels import attention
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v = (torch.randn(B, H, N, d, generator=g, device=DEVICE).to(torch.bfloat16)
+               for _ in range(3))
+    out = attention.fixed_max_attention(q, k, v, d**-0.5)
+    sync()
+    ref = attention.fixed_max_attention_plain(q, k, v, d**-0.5).float()
+    bound = ATTN_ULPS * 2.0**-8 * ref.abs().max().item()
+    err = (out.float() - ref).abs().max().item()
+    label = f"(B={B}, H={H}, N={N}, d={d})"
+    check(math.isfinite(err) and err <= bound,
+          f"fixed_max_attention {label}: max err {err} > {bound}")
+    log(f"kernels: fixed_max_attention {label}: max |kernel - plain| {err:.3g} "
+        f"<= {bound:.3g} ({ATTN_ULPS} x 2^-8 x max |plain|)")
+    for name, fn in WRONG_HEAD_MAJOR.items():
+        wrong = (fn(q, k, v, d**-0.5).float() - ref).abs().max().item()
+        log(f"kernels: known-wrong '{name}' {label}: max |wrong - plain| "
+            f"{wrong:.3g} (must exceed {bound:.3g})")
+        if not wrong > bound:
+            POWERLESS.append(f"fixed_max_attention {label} '{name}': {wrong} <= {bound}")
+    return err
+
+
+def last_column_wins(sim):
+    """Known-wrong row argmax: the last maximal column instead of the first."""
+    import torch
+
+    return (sim.shape[1] - 1 - torch.argmax(torch.flip(sim, [1]), dim=1)).int()
+
+
 def match_inputs(P: int, N: int, M: int, seed: int, integer: bool = False):
     import torch
 
@@ -287,9 +374,92 @@ def match_check(inputs, label: str):
     return err
 
 
+def u8_inputs(P: int, N: int, M: int, seed: int, ties: bool = False):
+    """uint8 descriptors and masks; with ``ties`` every row of q1 appears
+    twice in q2, so exact ties abound."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q1 = torch.randint(0, 256, (P, N, 128), generator=g, device=DEVICE).to(torch.uint8)
+    if ties:
+        q2 = torch.repeat_interleave(torch.roll(q1, N // 4, dims=1), 2, dim=1)[:, :M]
+    else:
+        q2 = torch.randint(0, 256, (P, M, 128), generator=g, device=DEVICE).to(torch.uint8)
+    v1 = torch.rand(P, N, generator=g, device=DEVICE) < 0.9
+    v2 = torch.rand(P, M, generator=g, device=DEVICE) < 0.9
+    return q1, q2.contiguous(), v1, v2
+
+
+def int8_operands(q1, q2, v1, v2, encoding: str = "signed"):
+    from vit_colmap_tpu_torch.ops.matching import prepare_int8_descriptors
+
+    a1, s1, i1, coef = prepare_int8_descriptors(q1, v1, encoding)
+    a2, s2, i2, _ = prepare_int8_descriptors(q2, v2, encoding)
+    return a1, a2, s1, s2, i1, i2, coef
+
+
+def exact_check(name: str, out, ref, label: str) -> float:
+    """Identical indices and bit-equal best / second; returns the largest
+    |kernel - plain| of best / second (0 when the check passes)."""
+    import torch
+
+    for part, a, b in zip(("best", "second", "best_idx"), out, ref):
+        n_diff = int((a != b).sum())
+        check(n_diff == 0 and torch.equal(a, b), f"{name} {label}: {n_diff} {part} differ")
+    log(f"kernels: {name} {label}: indices identical, best/second bit-equal")
+    return max((a - b).abs().max().item() for a, b in zip(out[:2], ref[:2]))
+
+
+def ties_shown(name: str, best_idx, sims, label: str) -> None:
+    """The tie input must tell the first-column rule from the last."""
+    n_diff = sum(int((last_column_wins(sim) != best_idx[p]).sum())
+                 for p, sim in enumerate(sims))
+    log(f"kernels: {name} {label}: 'last column wins' differs on {n_diff} rows")
+    check(n_diff > 0, f"{name} {label}: no ties ('last column wins' agrees)")
+
+
+def topk2_checks():
+    """Kernel 4 on random and integer-tie inputs."""
+    import torch
+
+    from vit_colmap_tpu_torch.kernels import match
+
+    n = MAX_KEYPOINTS
+    d1, d2, _, v2 = match_inputs(PAIR_BATCH, n, n, seed=5)
+    err = exact_check("match_topk2", match.match_topk2(d1, d2, v2),
+                      match.topk2_plain(d1, d2, v2), f"random {PAIR_BATCH}x{n}x{n}")
+    d1, d2, _, v2 = match_inputs(4, n, n, seed=6, integer=True)
+    out = match.match_topk2(d1, d2, v2)
+    err = max(err, exact_check("match_topk2", out, match.topk2_plain(d1, d2, v2),
+                               f"integer ties 4x{n}x{n}"))
+    sims = (torch.where(v2[p][None], match.similarity_plain(d1[p], d2[p]), -2.0)
+            for p in range(d1.shape[0]))
+    ties_shown("match_topk2", out[2], sims, "integer ties")
+    return err
+
+
+def int8_checks():
+    """Kernel 5 on random and duplicated-row uint8 inputs (signed)."""
+    from vit_colmap_tpu_torch.kernels import match
+
+    n = MAX_KEYPOINTS
+    ops = int8_operands(*u8_inputs(PAIR_BATCH, n, n, seed=7))
+    err = exact_check("match_topk2_int8", match.match_topk2_int8(*ops),
+                      match.topk2_int8_plain(*ops), f"random {PAIR_BATCH}x{n}x{n}")
+    ops = int8_operands(*u8_inputs(4, n, n, seed=8, ties=True))
+    out = match.match_topk2_int8(*ops)
+    err = max(err, exact_check("match_topk2_int8", out, match.topk2_int8_plain(*ops),
+                               f"duplicated rows 4x{n}x{n}"))
+    a1, a2, s1, s2, i1, i2, coef = ops
+    sims = (match.int8_similarity_plain(a1[p], a2[p], s1[p], s2[p], i1[p], i2[p], coef)
+            for p in range(a1.shape[0]))
+    ties_shown("match_topk2_int8", out[2], sims, "duplicated rows")
+    return err
+
+
 def slice_phase(work: Path):
     """The main path through Pipeline.run, counts reset just before."""
-    from vit_colmap_tpu_torch.kernels import attention, match
+    from vit_colmap_tpu_torch.kernels import launches as counts
     from vit_colmap_tpu_torch.pipeline import Pipeline
     from vit_colmap_tpu_torch.utils.config import Config
     from vit_colmap_tpu_torch.utils.image_io import write_png
@@ -313,25 +483,25 @@ def slice_phase(work: Path):
     config.do_reconstruction = False
     pipeline = Pipeline(config, device=DEVICE)
 
-    attention.launches = 0
-    match.launches = 0
     sync()
+    counts.clear()
     t = time.perf_counter()
     report = pipeline.run(img_dir, work / "out", work / "run1.db")
     sync()
     wall = time.perf_counter() - t
-    launches = {"attention_qkv": attention.launches,
-                "match_topk2_colmax": match.launches}
+    launches = dict(counts)
     log(f"slice: Pipeline.run in {wall:.1f} s, report {report}, launches {launches}")
-    # Backbone passes: the PCA fit over the 8 images, then extraction, each
-    # in batches of IMAGE_BATCH; 12 attention layers per pass.
-    passes = 2 * math.ceil(NUM_IMAGES / IMAGE_BATCH)
-    check(launches["attention_qkv"] == HEADS * passes,
-          f"attention_qkv launched {launches['attention_qkv']} times, "
-          f"expected {HEADS * passes}")
-    check(launches["match_topk2_colmax"] == math.ceil(NUM_PAIRS / PAIR_BATCH),
-          f"match_topk2_colmax launched {launches['match_topk2_colmax']} times")
+    expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS,
+                               "match_topk2_colmax": MATCH_BATCHES}, "main path")
     return pipeline, report, launches
+
+
+def expect_launches(launches: dict, expected: dict, path: str) -> None:
+    """Exactly the expected kernels launched on a path, as often as
+    expected; every other kernel not at all."""
+    for name in sorted(set(launches) | set(expected)):
+        got, want = launches.get(name, 0), expected.get(name, 0)
+        check(got == want, f"{path}: {name} launched {got} times, expected {want}")
 
 
 def check_database(db_path: Path):
@@ -364,9 +534,11 @@ def check_database(db_path: Path):
             "matches": n_matches}
 
 
-def check_tokens(pipeline, img_dir: Path):
-    """Patch tokens of one image batch: kernel 1 against its plain version,
-    and the known-wrong variants against the same bounds."""
+def check_tokens(extractor, img_dir: Path, kernel: str, plain, wrong: dict,
+                 phase: str):
+    """Patch tokens of one image batch: the extractor's attention kernel
+    (``kernel``, a function of ``kernels.attention``) against its plain
+    version, and the known-wrong variants against the same bounds."""
     from unittest import mock
 
     import numpy as np
@@ -374,47 +546,43 @@ def check_tokens(pipeline, img_dir: Path):
     from vit_colmap_tpu_torch.kernels import attention
     from vit_colmap_tpu_torch.utils.image_io import imread_rgb
 
-    extractor = next(iter(pipeline._extractors.values()))
     imgs = np.stack([imread_rgb(f) for f in sorted(img_dir.iterdir())[:IMAGE_BATCH]])
 
     def tokens(fn):
-        with mock.patch.object(attention, "attention_qkv", fn):
+        with mock.patch.object(attention, kernel, fn):
             return extractor.dense_features(imgs)
 
     def errors(tok):
-        diff = tok - plain
-        rms = (diff.square().mean().sqrt() / plain.square().mean().sqrt()).item()
-        return rms, (diff.abs().max() / plain.abs().max()).item()
+        diff = tok - plain_tok
+        rms = (diff.square().mean().sqrt() / plain_tok.square().mean().sqrt()).item()
+        return rms, (diff.abs().max() / plain_tok.abs().max()).item()
 
     kern = extractor.dense_features(imgs)
-    plain = tokens(attention.attention_qkv_plain)
+    plain_tok = tokens(plain)
     rms, rel = errors(kern)
     check(bool(kern.isfinite().all()) and rms <= TOKEN_RMS_TOL and rel <= TOKEN_MAX_TOL,
-          f"patch tokens kernel vs plain: rms rel err {rms}, max rel err {rel}")
-    log(f"slice: patch tokens {tuple(kern.shape)} kernel vs plain path: "
+          f"patch tokens {kernel} vs plain: rms rel err {rms}, max rel err {rel}")
+    log(f"{phase}: patch tokens {tuple(kern.shape)} {kernel} vs plain path: "
         f"rms rel err {rms:.3g} <= {TOKEN_RMS_TOL}, max rel err {rel:.3g} "
         f"<= {TOKEN_MAX_TOL}")
     # The dropped tail moves a few of 9,691 keys: the kernel check must see
     # it; the token map is not meant to, and its reading is only logged.
-    for name, fn in wrong_kernels(IMAGE_BATCH).items():
+    for name, fn in wrong.items():
         w_rms, w_rel = errors(tokens(fn))
         must = name != "last kv tile dropped"
-        log(f"slice: known-wrong '{name}' patch tokens: rms rel err {w_rms:.3g}, "
+        log(f"{phase}: known-wrong '{name}' patch tokens: rms rel err {w_rms:.3g}, "
             f"max rel err {w_rel:.3g}" + (" (one must exceed its bound)" if must else ""))
         if must and not (w_rms > TOKEN_RMS_TOL or w_rel > TOKEN_MAX_TOL):
-            POWERLESS.append(f"patch tokens '{name}': rms {w_rms}, max {w_rel}")
-    return extractor
+            POWERLESS.append(f"patch tokens {kernel} '{name}': rms {w_rms}, max {w_rel}")
 
 
-def check_matches(db_path: Path):
-    """The database's matches (kernel 2 on the main path) against the plain
-    path's matches from the same descriptors."""
-    import numpy as np
+def db_pairs(db_path: Path):
+    """The database's uint8 descriptors padded to one power-of-two width
+    >= 128 with validity masks, as the matching driver pads them, and every
+    image pair with its stored matches."""
     import torch
 
     from vit_colmap_tpu_torch.database import ColmapDatabase
-    from vit_colmap_tpu_torch.kernels import match
-    from vit_colmap_tpu_torch.ops.matching import normalize_descriptors
 
     with ColmapDatabase.open_database(db_path) as db:
         ids = sorted(db.read_images())
@@ -424,55 +592,184 @@ def check_matches(db_path: Path):
     n = 128
     while n < max(len(d) for d in descs):
         n *= 2
-    desc = torch.zeros(len(ids), n, 128, device=DEVICE)
+    desc = torch.zeros(len(ids), n, 128, dtype=torch.uint8, device=DEVICE)
     valid = torch.zeros(len(ids), n, dtype=torch.bool, device=DEVICE)
     for i, d in enumerate(descs):
-        desc[i, : len(d)] = torch.from_numpy(d).to(DEVICE).float() / 127.5 - 1.0
+        desc[i, : len(d)] = torch.from_numpy(d).to(DEVICE)
         valid[i, : len(d)] = True
-    desc = normalize_descriptors(desc)
     pairs = list(stored)
     i1 = torch.tensor([p[0] for p in pairs], device=DEVICE)
     i2 = torch.tensor([p[1] for p in pairs], device=DEVICE)
-    inputs = (desc[i1], desc[i2], valid[i1], valid[i2])
-    plain = match.filter_matches(*match.topk2_colmax_plain(*inputs), inputs[2])
-    plain = plain.cpu().numpy()
-    for k, (a, b) in enumerate(pairs):
+    return desc[i1], desc[i2], valid[i1], valid[i2], stored
+
+
+def check_matches(db_path: Path, plain_fn, label: str):
+    """The database's matches against ``plain_fn`` (the plain path's
+    matcher) on the same descriptors, decoded (signed) and normalized as
+    pipeline/match.py does; returns the float inputs and the uint8 ones."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.ops.matching import normalize_descriptors
+
+    q1, q2, v1, v2, stored = db_pairs(db_path)
+    d1, d2 = (normalize_descriptors(q.float() / 127.5 - 1.0) for q in (q1, q2))
+    inputs = (d1, d2, v1, v2)
+    plain = plain_fn(*inputs).cpu().numpy()
+    for k, (a, b) in enumerate(stored):
         rows = np.nonzero(plain[k] >= 0)[0]
         expect = np.stack([rows, plain[k][rows]], axis=1).astype(np.uint32)
         got = stored[(a, b)]
         got = np.zeros((0, 2), np.uint32) if got is None else got
         check(np.array_equal(got, expect),
-              f"pair {(a, b)}: {len(got)} kernel matches vs {len(expect)} plain")
-    log(f"slice: matches of all {len(pairs)} pairs identical to the plain path")
-    return inputs
+              f"{label} pair {(a, b)}: {len(got)} kernel matches vs "
+              f"{len(expect)} plain")
+    log(f"{label}: matches of all {len(stored)} pairs identical to the plain path")
+    return inputs, (q1, q2, v1, v2)
 
 
-def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main):
+def plain_fused(d1, d2, v1, v2):
+    from vit_colmap_tpu_torch.kernels import match
+
+    return match.filter_matches(*match.topk2_colmax_plain(d1, d2, v1, v2), v1)
+
+
+def plain_no_cross(d1, d2, v1, v2):
+    from vit_colmap_tpu_torch.kernels import match
+
+    return match.filter_matches(*match.topk2_plain(d1, d2, v2), None, v1,
+                                cross_check=False)
+
+
+def fixedmax_path(work: Path):
+    """(a) ``ViTExtractor(attn_impl="fixedmax")`` extraction of the slice's
+    images into a database: kernel 3 in every layer, kernel 1 nowhere."""
+    from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
+    from vit_colmap_tpu_torch.kernels import attention
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.utils.config import CameraConfig
+
+    extractor = ViTExtractor(
+        weights_path=str(work / "vitb14_random.pth"), backbone="vitb14",
+        max_keypoints=MAX_KEYPOINTS, image_batch=IMAGE_BATCH,
+        attn_impl="fixedmax", device=DEVICE,
+    )
+    camera = CameraConfig()
+    sync()
+    counts.clear()
+    t = time.perf_counter()
+    extractor.extract(work / "images", work / "fixedmax.db", camera.model, camera.params)
+    sync()
+    wall = time.perf_counter() - t
+    launches = dict(counts)
+    log(f"paths: (a) fixedmax extraction in {wall:.1f} s, launches {launches}")
+    expect_launches(launches, {"fixed_max_attention": BACKBONE_LAYERS},
+                    "(a) fixedmax extraction")
+    check_tokens(extractor, work / "images", "fixed_max_attention",
+                 attention.fixed_max_attention_plain, WRONG_HEAD_MAJOR, "paths: (a)")
+    return extractor, launches
+
+
+def matcher_paths(work: Path, extractor):
+    """(b) match_exhaustive with cross_check=False, (c) the two-pass
+    cross-check against the fused one, (d) the int8 matcher, each with the
+    counts reset just before it."""
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.kernels import match
+    from vit_colmap_tpu_torch.pipeline.match import match_exhaustive
+    from vit_colmap_tpu_torch.utils.config import MatchingConfig
+
+    db = work / "fixedmax.db"
+    config = MatchingConfig(cross_check=False, pair_batch=PAIR_BATCH,
+                            do_verification=False, descriptor_encoding="signed")
+    sync()
+    counts.clear()
+    stats = match_exhaustive(db, config, device_descriptors=extractor.device_cache,
+                             device=DEVICE)
+    sync()
+    launches = {"b": dict(counts)}
+    log(f"paths: (b) match_exhaustive cross_check=False: {stats.total_matches} "
+        f"matches, launches {launches['b']}")
+    expect_launches(launches["b"], {"match_topk2": MATCH_BATCHES},
+                    "(b) cross_check=False matching")
+    inputs, u8 = check_matches(db, plain_no_cross, "paths: (b)")
+
+    fused = match.match_pairs(*inputs)
+    sync()
+    counts.clear()
+    two_pass = match.match_pairs(*inputs, fused_cross=False)
+    sync()
+    launches["c"] = dict(counts)
+    expect_launches(launches["c"], {"match_topk2": 2}, "(c) two-pass cross-check")
+    n_diff = int((two_pass != fused).sum())
+    check(n_diff == 0, f"(c) two-pass vs fused cross-check: {n_diff} rows differ")
+    log(f"paths: (c) two-pass cross-check identical to the fused one on "
+        f"{inputs[0].shape[0]} pairs ({int((fused >= 0).sum())} matches), "
+        f"launches {launches['c']}")
+
+    q1, q2, v1, v2 = u8
+    ops = int8_operands(q1, q2, v1, v2, "signed")
+    sync()
+    counts.clear()
+    int8 = match.match_pairs_int8(*ops, v1)
+    sync()
+    launches["d"] = dict(counts)
+    expect_launches(launches["d"], {"match_topk2_int8": 2}, "(d) int8 matching")
+    a1, a2, s1, s2, i1, i2, coef = ops
+    plain = match.filter_matches(
+        *match.topk2_int8_plain(*ops),
+        match.topk2_int8_plain(a2, a1, s2, s1, i2, i1, coef)[2], v1)
+    n_diff = int((int8 != plain).sum())
+    check(n_diff == 0, f"(d) int8 matcher vs its plain version: {n_diff} rows differ")
+    vs_float = int((int8 != fused).sum())
+    log(f"paths: (d) int8 matcher identical to its plain version "
+        f"({int((int8 >= 0).sum())} matches), launches {launches['d']}; "
+        f"rows that differ from the float matcher: {vs_float} of {int8.numel()}")
+    return launches, inputs, ops, vs_float
+
+
+def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
+                fixedmax_extractor, int8_ops):
     import torch
     import torch.nn.functional as F
 
     from vit_colmap_tpu_torch.kernels import attention, match
+    from vit_colmap_tpu_torch.utils.config import CameraConfig
 
     out = {}
-    # Kernel 1 at the main path's shape: one batch of IMAGE_BATCH images.
-    B, N, D = IMAGE_BATCH, 1 + (HEIGHT // 14) * (WIDTH // 14), 64 * HEADS
+    # Kernels 1 and 3 at the main path's shape: one batch of IMAGE_BATCH
+    # images; kernel 3 on the permuted views the backbone passes it.
+    B, N, D = IMAGE_BATCH, TOKENS, 64 * HEADS
     g = torch.Generator(device=DEVICE).manual_seed(7)
     qkv = torch.randn(B, N, 3 * D, generator=g, device=DEVICE).to(torch.bfloat16)
-    q, k, v = (qkv[..., i * D:(i + 1) * D].reshape(B, N, HEADS, 64).transpose(1, 2)
-               .contiguous() for i in range(3))
-    out["attention_qkv"] = {
-        "ms": cuda_ms(lambda: attention.attention_qkv(qkv, HEADS, 64**-0.5), 10),
-        "plain_ms": cuda_ms(lambda: attention.attention_qkv_plain(qkv, HEADS, 64**-0.5), 3),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10),
+    qh, kh, vh = split_heads(qkv, HEADS)
+    q, k, v = (t.contiguous() for t in (qh, kh, vh))
+    attn_cost = {
         "flops": 4.0 * B * HEADS * N * N * 64,
         "bytes": qkv.numel() * 2 + B * N * D * 2,
         "peak": PEAK_BF16_FLOPS,
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10),
     }
-    # Kernel 2 at the main path's shape: the 28 pairs of the slice's
+    out["attention_qkv"] = {
+        "ms": cuda_ms(lambda: attention.attention_qkv(qkv, HEADS, 64**-0.5), 10),
+        "plain_ms": cuda_ms(lambda: attention.attention_qkv_plain(qkv, HEADS, 64**-0.5), 3),
+        **attn_cost,
+    }
+    out["fixed_max_attention"] = {
+        "ms": cuda_ms(lambda: attention.fixed_max_attention(qh, kh, vh, 64**-0.5), 10),
+        "plain_ms": cuda_ms(
+            lambda: attention.fixed_max_attention_plain(qh, kh, vh, 64**-0.5), 3),
+        **attn_cost,
+    }
+    # Kernels 2 and 4 at the main path's shape: the 28 pairs of the slice's
     # database descriptors (P, 4096, 128).
     d1, d2, v1, v2 = match_inputs_main
     P, Nm, Dm = d1.shape
     Mm = d2.shape[1]
+    desc_bytes = (d1.numel() + d2.numel()) * 4 + v2.numel() + P * Nm * 12
+
+    def library_topk2():
+        sim = torch.bmm(d1, d2.transpose(1, 2))
+        return torch.topk(sim.masked_fill(~v2[:, None, :], -2.0), 2, dim=-1)
 
     def library_match():
         sim = torch.bmm(d1, d2.transpose(1, 2))
@@ -486,9 +783,39 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main):
         "plain_ms": cuda_ms(lambda: match.topk2_colmax_plain(d1, d2, v1, v2), 3),
         "library_ms": cuda_ms(library_match, 10),
         "flops": 2.0 * P * Nm * Mm * Dm,
-        "bytes": (d1.numel() + d2.numel()) * 4 + v1.numel() + v2.numel()
-        + P * Nm * 12 + P * Mm * 4,
+        "bytes": desc_bytes + v1.numel() + P * Mm * 4,
         "peak": PEAK_FP32_FLOPS,
+    }
+    out["match_topk2"] = {
+        "ms": cuda_ms(lambda: match.match_topk2(d1, d2, v2), 10),
+        "plain_ms": cuda_ms(lambda: match.topk2_plain(d1, d2, v2), 3),
+        "library_ms": cuda_ms(library_topk2, 10),
+        "flops": 2.0 * P * Nm * Mm * Dm,
+        "bytes": desc_bytes,
+        "peak": PEAK_FP32_FLOPS,
+    }
+    # Kernel 5 on the same database's uint8 descriptors (path (d)).
+    a1, a2, s1, s2, i1, i2, coef = int8_ops
+
+    def library_int8():  # one integer matmul per pair, then the epilogue
+        tops = []
+        for p in range(a1.shape[0]):
+            acc = torch._int_mm(a1[p], a2[p].T).float()
+            dot = coef[0] * acc + coef[1] * (s1[p][:, None] + s2[p][None, :]) + coef[2]
+            sim = torch.where(i2[p][None, :] > 0, dot * i1[p][:, None] * i2[p][None, :],
+                              -2.0)
+            tops.append(torch.topk(sim, 2, dim=-1))
+        return tops
+
+    out["match_topk2_int8"] = {
+        "ms": cuda_ms(lambda: match.match_topk2_int8(*int8_ops), 10),
+        "plain_ms": cuda_ms(lambda: match.topk2_int8_plain(*int8_ops), 3),
+        "library_ms": cuda_ms(library_int8, 10),
+        "flops": 2.0 * a1.shape[0] * a1.shape[1] * a2.shape[1] * a1.shape[2],
+        "bytes": a1.numel() + a2.numel()
+        + 4 * (s1.numel() + s2.numel() + i1.numel() + i2.numel()) + 12
+        + a1.shape[0] * a1.shape[1] * 12,
+        "peak": PEAK_INT8_OPS,
     }
     for name, t in out.items():
         t["bound_ops_ms"] = t["flops"] / t["peak"] * 1e3
@@ -496,17 +823,25 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main):
         log(f"times: {name}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
             f"library {t['library_ms']:.3f} ms, bound {max(t['bound_ops_ms'], t['bound_bytes_ms']):.3f} ms")
 
-    # Warm end-to-end rates: a second Pipeline.run on the same pipeline.
+    # Warm end-to-end rates: a second Pipeline.run on the same pipeline, and
+    # a second fixedmax extraction on the same extractor.
     sync()
     report = pipeline.run(img_dir, work / "out", work / "run2.db")
+    sync()
+    t = time.perf_counter()
+    fixedmax_extractor.extract(img_dir, work / "fixedmax2.db", CameraConfig().model)
+    sync()
+    fixedmax_s = time.perf_counter() - t
     rates = {
         "extract_img_per_s": NUM_IMAGES / report["extract_s"],
         "match_pairs_per_s": NUM_PAIRS / report["match_verify_s"],
         "extract_match_pairs_per_s": NUM_PAIRS / (report["extract_s"] + report["match_verify_s"]),
         "extract_s": report["extract_s"],
         "match_s": report["match_verify_s"],
+        "fixedmax_extract_img_per_s": NUM_IMAGES / fixedmax_s,
+        "fixedmax_extract_s": fixedmax_s,
     }
-    log(f"times: warm Pipeline.run: {rates}")
+    log(f"times: warm Pipeline.run and fixedmax extraction: {rates}")
     return out, rates
 
 
@@ -529,35 +864,60 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from vit_colmap_tpu_torch.kernels import attention
+
     card, kind = device_phase()
     build_s = build_phase()
 
-    attn_err = max(attention_check(1, 1031, 2, seed=1),
-                   attention_check(IMAGE_BATCH, 9691, HEADS, seed=2))
-    match_err = max(
-        match_check(match_inputs(PAIR_BATCH, 4096, 4096, seed=3), "random 28x4096x4096"),
-        match_check(match_inputs(4, 4096, 4096, seed=4, integer=True), "integer ties 4x4096x4096"),
-    )
+    errs = {
+        "attention_qkv": max(attention_check(1, 1031, 2, seed=1),
+                             attention_check(IMAGE_BATCH, TOKENS, HEADS, seed=2)),
+        "fixed_max_attention": max(head_major_check(1, 2, 1031, 40, seed=9),
+                                   head_major_check(IMAGE_BATCH, HEADS, TOKENS, 64,
+                                                    seed=10)),
+        "match_topk2_colmax": max(
+            match_check(match_inputs(PAIR_BATCH, MAX_KEYPOINTS, MAX_KEYPOINTS, seed=3),
+                        "random 28x4096x4096"),
+            match_check(match_inputs(4, MAX_KEYPOINTS, MAX_KEYPOINTS, seed=4, integer=True),
+                        "integer ties 4x4096x4096")),
+        "match_topk2": topk2_checks(),
+        "match_topk2_int8": int8_checks(),
+    }
 
     with tempfile.TemporaryDirectory(prefix="vit_colmap_smoke_") as tmp:
         work = Path(tmp)
-        pipeline, report, launches = slice_phase(work)
+        pipeline, report, main_launches = slice_phase(work)
         db_counts = check_database(work / "run1.db")
-        check_tokens(pipeline, work / "images")
-        inputs_main = check_matches(work / "run1.db")
-        times, rates = times_phase(pipeline, work, work / "images", inputs_main)
+        extractor = next(iter(pipeline._extractors.values()))
+        check_tokens(extractor, work / "images", "attention_qkv",
+                     attention.attention_qkv_plain, wrong_kernels(IMAGE_BATCH), "slice")
+        inputs_main, _ = check_matches(work / "run1.db", plain_fused, "slice")
+        fixedmax_extractor, fixedmax_launches = fixedmax_path(work)
+        path_launches, _, int8_ops, int8_vs_float = matcher_paths(work, fixedmax_extractor)
+        times, rates = times_phase(pipeline, work, work / "images", inputs_main,
+                                   fixedmax_extractor, int8_ops)
     check(not POWERLESS, "known-wrong kernels passed a check: " + "; ".join(POWERLESS))
 
-    sources = {
-        "attention_qkv": ("vit_colmap_tpu_torch/csrc/attention_qkv.cu",
+    # name -> (source, TPU kernel it replaces, launches on its own path)
+    kernel_rows = {
+        "attention_qkv": ("vit_colmap_tpu_torch/csrc/fixed_max_attention.cu",
                           "vit_colmap_tpu/ops/pallas/attention_kernel.py:279",
-                          attn_err),
-        "match_topk2_colmax": ("vit_colmap_tpu_torch/csrc/match_topk2_colmax.cu",
+                          main_launches),
+        "fixed_max_attention": ("vit_colmap_tpu_torch/csrc/fixed_max_attention.cu",
+                                "vit_colmap_tpu/ops/pallas/attention_kernel.py:147",
+                                fixedmax_launches),
+        "match_topk2_colmax": ("vit_colmap_tpu_torch/csrc/match_topk2.cu",
                                "vit_colmap_tpu/ops/pallas/match_kernel.py:340",
-                               match_err),
+                               main_launches),
+        "match_topk2": ("vit_colmap_tpu_torch/csrc/match_topk2.cu",
+                        "vit_colmap_tpu/ops/pallas/match_kernel.py:91",
+                        path_launches["b"]),
+        "match_topk2_int8": ("vit_colmap_tpu_torch/csrc/match_topk2_int8.cu",
+                             "vit_colmap_tpu/ops/pallas/match_kernel.py:192",
+                             path_launches["d"]),
     }
     kernels = []
-    for name, (source, replaces, err) in sources.items():
+    for name, (source, replaces, launches) in kernel_rows.items():
         t = times[name]
         kernels.append({
             "name": name,
@@ -565,14 +925,15 @@ def main() -> int:
             "source": source,
             "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": err,
+            "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": max(t["bound_ops_ms"], t["bound_bytes_ms"]),
             "bound_by": "operations" if t["bound_ops_ms"] >= t["bound_bytes_ms"] else "bytes",
             "library_ms": t["library_ms"],
         })
-    log(f"done: build {build_s:.1f} s, database {db_counts}, rates {rates}")
+    log(f"done: build {build_s:.1f} s, database {db_counts}, rates {rates}, "
+        f"int8 rows differing from the float matcher {int8_vs_float}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""Kernel 1 (packed-qkv fixed-max attention) of the PyTorch port against the
-JAX package's ``fixed_max_attention_qkv`` (Pallas, interpret mode).
+"""Kernels 1 and 3 (fixed-max attention on packed qkv and on head-major
+tensors) of the PyTorch port against the JAX package's
+``fixed_max_attention_qkv`` and ``fixed_max_attention`` (Pallas, interpret
+mode).
 
 CPU tensors take the wrapper's plain PyTorch version; the CUDA kernel is
 held against that plain version on the card by ``test_torch_gpu.py``.
@@ -10,8 +12,11 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from vit_colmap_tpu.ops.pallas.attention_kernel import fixed_max_attention_qkv
-from vit_colmap_tpu_torch.kernels import attention
+from vit_colmap_tpu.ops.pallas.attention_kernel import (
+    fixed_max_attention,
+    fixed_max_attention_qkv,
+)
+from vit_colmap_tpu_torch.kernels import attention, launches
 
 
 
@@ -78,6 +83,70 @@ def test_rejects_non64_head_dim_and_odd_heads(width, heads):
 
 
 def test_cpu_tensor_takes_plain_version():
-    attention.launches = 0
+    launches.clear()
     attention.attention_qkv(torch.zeros(1, 64, 3 * 128), 2, 0.125)
-    assert attention.launches == 0
+    z = torch.zeros(1, 2, 64, 64)
+    attention.fixed_max_attention(z, z, z, 0.125)
+    assert sum(launches.values()) == 0
+
+
+# Kernel 3: head-major (B, H, N, d <= 64).
+
+def _heads(rng, n, d, scale_v=1.0, scale_qk=1.0):
+    q, k, v = (rng.standard_normal((1, 2, n, d)).astype(np.float32) for _ in range(3))
+    return scale_qk * q, scale_qk * k, scale_v * v
+
+
+def _softmax_heads(q, k, v, scale):
+    s = np.einsum("bhnd,bhmd->bhnm", q, k).astype(np.float64) * scale
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("bhnm,bhmd->bhnd", p / p.sum(-1, keepdims=True), v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 40])
+@pytest.mark.parametrize("n", [300, 1031])
+def test_head_major_plain_matches_jax_kernel(n, d, dtype):
+    """The plain version against the reference kernel on the same inputs in
+    the same dtype (both round q and p alike): atol 1e-3."""
+    q, k, v = _heads(np.random.default_rng(n + d), n, d)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = fixed_max_attention(*(jnp.asarray(x, jd) for x in (q, k, v)), d**-0.5,
+                              block_q=256, block_kv=256, interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = attention.fixed_max_attention(
+        *(torch.from_numpy(x).to(td) for x in (q, k, v)), d**-0.5)
+    assert out.shape == (1, 2, n, d) and out.dtype == td
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=1e-3)
+
+
+def test_head_major_pad_rows_do_not_leak():
+    q, k, v = _heads(np.random.default_rng(4), 300, 64, scale_v=100.0)
+    out = attention.fixed_max_attention(*map(torch.from_numpy, (q, k, v)), 0.125)
+    # p is rounded to bf16 (rel. 2^-9), so the error scales with |v| ~ 100.
+    assert np.abs(out.numpy() - _softmax_heads(q, k, v, 0.125)).max() < 2.0
+
+
+def test_head_major_huge_logits_stay_finite():
+    q, k, v = _heads(np.random.default_rng(5), 256, 64, scale_qk=50.0)
+    out = attention.fixed_max_attention(*map(torch.from_numpy, (q, k, v)), 0.125)
+    assert torch.isfinite(out).all()
+
+
+def test_head_major_rejects_head_dim_over_64():
+    z = torch.zeros(1, 2, 256, 96)
+    with pytest.raises(ValueError, match="head_dim <= 64"):
+        attention.fixed_max_attention(z, z, z, 0.125)
+
+
+def test_head_major_takes_strided_views():
+    """The permuted heads of a packed qkv, as the backbone passes them, give
+    kernel 1's answer; the result merges back into (B, N, D) as a view."""
+    rng = np.random.default_rng(6)
+    qkv = torch.from_numpy(rng.standard_normal((2, 200, 3 * 128)).astype(np.float32))
+    q, k, v = qkv.reshape(2, 200, 3, 2, 64).permute(2, 0, 3, 1, 4)
+    out = attention.fixed_max_attention(q, k, v, 0.125)
+    merged = out.transpose(1, 2).reshape(2, 200, 128)
+    assert merged.data_ptr() == out.data_ptr()
+    torch.testing.assert_close(merged, attention.attention_qkv(qkv, 2, 0.125),
+                               rtol=0, atol=0)

@@ -19,9 +19,9 @@ from vit_colmap_tpu_torch.models.convert import jax_dinov2_to_torch
 TINY = dict(embed_dim=128, depth=2, num_heads=2, mlp_ratio=4.0)
 
 
-def _pair(gelu: str, grid: int = 4):
+def _pair(gelu: str, grid: int = 4, attn_impl: str = "xla"):
     jcfg = jdino.ViTConfig(**TINY, pretrain_grid=grid, dtype=jnp.float32,
-                           attn_impl="xla", gelu=gelu)
+                           attn_impl=attn_impl, gelu=gelu)
     jmodel = jdino.DinoV2(jcfg)
     params = jmodel.init(jax.random.key(0), jnp.zeros((1, 56, 56, 3)))
     # Flax initialises LayerScale at 1e-5 and the cls token at 0, which would
@@ -34,7 +34,7 @@ def _pair(gelu: str, grid: int = 4):
         params,
     )
     tcfg = tdino.ViTConfig(**TINY, pretrain_grid=grid, dtype=torch.float32,
-                           attn_impl="xla", gelu=gelu)
+                           attn_impl=attn_impl, gelu=gelu)
     tmodel = tdino.DinoV2(tcfg)
     tmodel.load_state_dict(jax_dinov2_to_torch(params))
     return jmodel, params, tmodel.eval()
@@ -52,6 +52,24 @@ def test_backbone_matches_flax(gelu, hw):
     assert out["grid"] == tuple(ref["grid"])
     for key in ("x_norm_patchtokens", "x_norm_clstoken"):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=2e-4)
+
+
+@pytest.mark.parametrize("impl", ["fixedmax", "flash", "auto"])
+def test_attn_impls_match_flax(impl):
+    """Below the kernel gate, and off the accelerator, every attn_impl is
+    eager softmax in both packages."""
+    jmodel, params, tmodel = _pair("tanh", attn_impl=impl)
+    x = np.random.default_rng(3).standard_normal((2, 70, 98, 3)).astype(np.float32)
+    ref = jmodel.apply(params, jnp.asarray(x))
+    with torch.no_grad():
+        out = tmodel(torch.from_numpy(x))
+    for key in ("x_norm_patchtokens", "x_norm_clstoken"):
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=2e-4)
+
+
+def test_default_attn_impl_matches_reference():
+    assert tdino.ViTConfig().attn_impl == jdino.ViTConfig().attn_impl == "auto"
+    assert tdino.make_backbone("vits14")[1].attn_impl == "auto"
 
 
 @pytest.mark.parametrize("grid_hw", [(85, 114), (16, 16), (16, 23)])
@@ -91,10 +109,40 @@ def test_attention_dispatch_uses_kernel_gate(monkeypatch):
     assert calls == [(1, 1024, 384)]
 
 
+def test_fixedmax_dispatch_uses_kernel3_gate(monkeypatch):
+    """fixedmax takes kernel 3 at N >= 1024 only, on the permuted heads of
+    the qkv projection, as in the reference; its result is the plain
+    version's on those heads."""
+    from vit_colmap_tpu_torch.kernels import attention
+
+    calls = []
+    real = attention.fixed_max_attention
+    monkeypatch.setattr(attention, "fixed_max_attention",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    cfg = tdino.ViTConfig(embed_dim=128, depth=1, num_heads=2, dtype=torch.float32,
+                          attn_impl="fixedmax")
+    attn = tdino.Attention(cfg)
+    x = torch.from_numpy(
+        np.random.default_rng(4).standard_normal((1, 1024, 128)).astype(np.float32))
+    with torch.no_grad():
+        attn(x[:, :1023])
+        assert calls == []
+        out = attn(x)
+        qkv = tdino._linear(x, attn.qkv, torch.float32)
+        ref = attention.attention_qkv_plain(qkv, 2, 64**-0.5)
+        ref = tdino._linear(ref, attn.proj, torch.float32)
+    assert calls == [(1, 2, 1024, 64)]
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("impl", ["fixedmax", "flash", "auto"])
 def test_unported_attention_raises(impl):
-    with pytest.raises(NotImplementedError):
-        tdino.make_backbone("vits14", attn_impl=impl)
+    """The three attn_impls that once raised "not ported" now build; an
+    unknown one raises."""
+    _, cfg = tdino.make_backbone("vits14", attn_impl=impl)
+    assert cfg.attn_impl == impl
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        tdino.make_backbone("vits14", attn_impl=impl + "_v2")
 
 
 def test_vitg14_raises():

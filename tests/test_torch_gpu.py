@@ -12,7 +12,8 @@ machine that has none of them:
 import pytest
 import torch
 
-from vit_colmap_tpu_torch.kernels import attention, match
+from vit_colmap_tpu_torch.kernels import attention, launches, match
+from vit_colmap_tpu_torch.ops.matching import prepare_int8_descriptors
 
 
 @pytest.fixture
@@ -29,10 +30,10 @@ def test_attention_kernel_matches_plain(cuda_device, b, n, heads):
     g = torch.Generator(device=cuda_device).manual_seed(n)
     qkv = torch.randn(b, n, 3 * 64 * heads, generator=g, device=cuda_device)
     qkv = qkv.to(torch.bfloat16)
-    before = attention.launches
+    before = launches["attention_qkv"]
     out = attention.attention_qkv(qkv, heads, 64**-0.5)
     torch.cuda.synchronize()
-    assert attention.launches == before + 1
+    assert launches["attention_qkv"] == before + 1
     ref = attention.attention_qkv_plain(qkv, heads, 64**-0.5).float()
     # Same bf16 roundings, different f32 sum order: at most about one bf16
     # ulp apart; bound at 4 x 2^-8 of the largest output.
@@ -66,10 +67,10 @@ def _match_case(kind, device, P=3, N=1000, M=1024):
 @pytest.mark.parametrize("kind", ["random", "ties"])
 def test_match_kernel_matches_plain(cuda_device, kind):
     inputs = _match_case(kind, cuda_device)
-    before = match.launches
+    before = launches["match_topk2_colmax"]
     out = match.match_topk2_colmax(*inputs)
     torch.cuda.synchronize()
-    assert match.launches == before + 1
+    assert launches["match_topk2_colmax"] == before + 1
     ref = match.topk2_colmax_plain(*inputs)
     assert torch.equal(out[2], ref[2]) and torch.equal(out[3], ref[3])
     assert (out[0] - ref[0]).abs().max().item() <= 1e-6
@@ -85,3 +86,110 @@ def test_match_kernel_rejects_other_widths(cuda_device):
     v = torch.ones(1, 128, dtype=torch.bool, device=cuda_device)
     with pytest.raises(NotImplementedError):
         match.match_topk2_colmax(d, d, v, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,heads,n,d", [(2, 12, 9691, 64), (1, 2, 1031, 40)])
+def test_head_major_attention_kernel_matches_plain(cuda_device, b, heads, n, d):
+    g = torch.Generator(device=cuda_device).manual_seed(n + d)
+    q, k, v = (torch.randn(b, heads, n, d, generator=g, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    before = launches["fixed_max_attention"]
+    out = attention.fixed_max_attention(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert launches["fixed_max_attention"] == before + 1
+    ref = attention.fixed_max_attention_plain(q, k, v, d**-0.5).float()
+    # Kernel 1's bound: the same bf16 roundings in another f32 sum order.
+    bound = 4 * 2.0**-8 * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= bound
+
+
+@pytest.mark.gpu
+def test_head_major_attention_kernel_takes_qkv_views(cuda_device):
+    """The backbone's permuted views of its qkv projection: kernel 3 gives
+    kernel 1's result (one CUDA body, other strides)."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    qkv = torch.randn(2, 1100, 3 * 128, generator=g, device=cuda_device)
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = qkv.reshape(2, 1100, 3, 2, 64).permute(2, 0, 3, 1, 4)
+    out = attention.fixed_max_attention(q, k, v, 0.125)
+    merged = out.transpose(1, 2).reshape(2, 1100, 128)
+    assert torch.equal(merged, attention.attention_qkv(qkv, 2, 0.125))
+    with pytest.raises(ValueError):
+        z = torch.zeros(1, 2, 64, 96, dtype=torch.bfloat16, device=cuda_device)
+        attention.fixed_max_attention(z, z, z, 0.125)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_topk2_kernel_matches_plain(cuda_device, kind):
+    d1, d2, v1, v2 = _match_case(kind, cuda_device)
+    before = launches["match_topk2"]
+    out = match.match_topk2(d1, d2, v2)
+    torch.cuda.synchronize()
+    assert launches["match_topk2"] == before + 1
+    ref = match.topk2_plain(d1, d2, v2)
+    for o, r in zip(out, ref):  # identical indices, bit-equal values
+        assert torch.equal(o, r)
+    two_pass = match.match_pairs(d1, d2, v1, v2, fused_cross=False)
+    assert torch.equal(two_pass, match.match_pairs(d1, d2, v1, v2))
+
+
+def _u8_case(kind, device, P=3, N=1000, M=1024):
+    g = torch.Generator(device=device).manual_seed(len(kind) + 1)
+    q1 = torch.randint(0, 256, (P, N, 128), generator=g, device=device).to(torch.uint8)
+    if kind == "ties":  # every row of q1 twice in q2: exact ties
+        q2 = torch.repeat_interleave(torch.roll(q1, N // 4, dims=1), 2, dim=1)[:, :M]
+    else:
+        q2 = torch.randint(0, 256, (P, M, 128), generator=g, device=device)
+        q2 = q2.to(torch.uint8)
+    v1 = torch.rand(P, N, generator=g, device=device) < 0.9
+    v2 = torch.rand(P, M, generator=g, device=device) < 0.9
+    return q1, q2.contiguous(), v1, v2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("encoding", ["signed", "unsigned"])
+def test_int8_kernel_matches_plain(cuda_device, encoding, kind):
+    q1, q2, v1, v2 = _u8_case(kind, cuda_device)
+    a1, s1, i1, coef = prepare_int8_descriptors(q1, v1, encoding)
+    a2, s2, i2, _ = prepare_int8_descriptors(q2, v2, encoding)
+    ops = (a1, a2, s1, s2, i1, i2, coef)
+    before = launches["match_topk2_int8"]
+    out = match.match_topk2_int8(*ops)
+    torch.cuda.synchronize()
+    assert launches["match_topk2_int8"] == before + 1
+    ref = match.topk2_int8_plain(*ops)
+    for o, r in zip(out, ref):  # identical indices, bit-equal values
+        assert torch.equal(o, r)
+    matches = match.match_pairs_int8(*ops, v1)
+    plain = match.filter_matches(*ref, match.topk2_int8_plain(
+        a2, a1, s2, s1, i2, i1, coef)[2], v1)
+    assert torch.equal(matches, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["flash", "auto"])
+def test_flash_and_auto_take_fused_attention(cuda_device, impl, monkeypatch):
+    """On the card "flash" and "auto" (N >= 1024) run PyTorch's fused
+    attention; it agrees with eager softmax within 2e-2 of the largest
+    output, the bound of the JAX package's kernel test."""
+    from vit_colmap_tpu_torch.models import dinov2
+
+    calls = []
+    sdpa = dinov2.F.scaled_dot_product_attention
+    monkeypatch.setattr(dinov2.F, "scaled_dot_product_attention",
+                        lambda *a, **k: calls.append(1) or sdpa(*a, **k))
+
+    cfg = dinov2.ViTConfig(embed_dim=128, depth=1, num_heads=2, attn_impl=impl)
+    attn = dinov2.Attention(cfg).to(cuda_device)
+    eager = dinov2.Attention(dinov2.ViTConfig(embed_dim=128, depth=1, num_heads=2,
+                                              attn_impl="xla")).to(cuda_device)
+    eager.load_state_dict(attn.state_dict())
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.randn(2, 1024, 128, generator=g, device=cuda_device)
+    with torch.no_grad():
+        out, ref = attn(x).float(), eager(x).float()
+    assert calls == [1]
+    assert (out - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()

@@ -1,6 +1,8 @@
-"""Kernel 2 (fused row top-2 + column argmax) and the matching ops of the
-PyTorch port against the JAX package (``pallas_topk2_colmax`` and
-``pallas_match_pairs`` in interpret mode, ``match_pairs_batched``).
+"""Kernels 2, 4 and 5 (fused row top-2 + column argmax, row top-2, int8 row
+top-2) and the matching ops of the PyTorch port against the JAX package
+(``pallas_topk2_colmax``, ``pallas_topk2``, ``pallas_topk2_int8``,
+``pallas_match_pairs[_int8]`` in interpret mode, ``match_pairs_batched``,
+``prepare_int8_descriptors``).
 
 CPU tensors take the wrapper's plain PyTorch version; the CUDA kernel is
 held against that plain version on the card by ``test_torch_gpu.py``.
@@ -14,9 +16,12 @@ import torch
 from vit_colmap_tpu.ops import matching as jmatching
 from vit_colmap_tpu.ops.pallas.match_kernel import (
     pallas_match_pairs,
+    pallas_match_pairs_int8,
+    pallas_topk2,
     pallas_topk2_colmax,
+    pallas_topk2_int8,
 )
-from vit_colmap_tpu_torch.kernels import match
+from vit_colmap_tpu_torch.kernels import launches, match
 from vit_colmap_tpu_torch.ops import matching
 
 
@@ -141,7 +146,128 @@ def test_compaction_round_trip():
 
 
 def test_cpu_tensor_takes_plain_version():
-    match.launches = 0
+    launches.clear()
     d1, d2, v1, v2 = _case("random", P=1, N=128, M=128)
     match.match_topk2_colmax(*map(torch.from_numpy, (d1, d2, v1, v2)))
-    assert match.launches == 0
+    match.match_topk2(*map(torch.from_numpy, (d1, d2, v2)))
+    ops = matching.prepare_int8_descriptors(
+        torch.zeros(1, 128, 128, dtype=torch.uint8), torch.from_numpy(v1), "signed")
+    match.match_topk2_int8(ops[0], ops[0], ops[1], ops[1], ops[2], ops[2], ops[3])
+    assert sum(launches.values()) == 0
+
+
+# Kernel 4: row top-2 only (cross_check=False, and the two-pass cross-check).
+
+@pytest.mark.parametrize("kind", CASES)
+def test_topk2_matches_jax_kernel(kind):
+    """Identical indices and bit-equal values, ties and invalid columns
+    included."""
+    d1, d2, _, v2 = _case(kind)
+    ref = pallas_topk2(*map(jnp.asarray, (d1, d2, v2)), interpret=True)
+    out = match.match_topk2(*map(torch.from_numpy, (d1, d2, v2)))
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("kind", CASES)
+@pytest.mark.parametrize("cross_check", [True, False])
+def test_two_pass_match_pairs_matches_jax(kind, cross_check):
+    """``fused_cross=False``: kernel 4, twice with the cross-check."""
+    d1, d2, v1, v2 = _case(kind)
+    args = dict(cross_check=cross_check, fused_cross=False)
+    ref = np.asarray(pallas_match_pairs(*map(jnp.asarray, (d1, d2, v1, v2)),
+                                        interpret=True, **args))
+    out = match.match_pairs(*map(torch.from_numpy, (d1, d2, v1, v2)), **args)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    fused = match.match_pairs(*map(torch.from_numpy, (d1, d2, v1, v2)),
+                              cross_check=cross_check)
+    np.testing.assert_array_equal(out.numpy(), fused.numpy())
+
+
+def test_last_column_wins_differs_on_ties():
+    """The tie input really has ties: a plain top-2 that lets the last
+    maximal column win gives other indices."""
+    d1, d2, _, v2 = _case("ties")
+    d1, d2, v2 = map(torch.from_numpy, (d1, d2, v2))
+    first = match.match_topk2(d1, d2, v2)[2]
+    flip = torch.flip(torch.where(v2[:, None, :], d1 @ d2.transpose(1, 2), -2.0), [-1])
+    last = d2.shape[1] - 1 - torch.argmax(flip, dim=-1)
+    assert (last.int() != first).sum() > 0
+
+
+# Kernel 5: int8 row top-2, and prepare_int8_descriptors.
+
+def _u8_case(kind: str, P=2, N=256, M=384):
+    """(q1, q2, valid1, valid2): uint8 descriptors as numpy."""
+    rng = np.random.default_rng(sum(map(ord, kind)) + 1)
+    q1 = rng.integers(0, 256, (P, N, 128), dtype=np.uint8)
+    if kind == "random":
+        q2 = rng.integers(0, 256, (P, M, 128), dtype=np.uint8)
+    elif kind == "correlated":  # noisy, permuted copies: many matches
+        noise = rng.integers(-20, 20, (P, M, 128))
+        q2 = np.clip(q1[:, rng.permutation(M) % N].astype(int) + noise, 0, 255)
+        q2 = q2.astype(np.uint8)
+    elif kind == "ties":  # every row of q1 twice in q2: exact ties
+        q2 = np.repeat(np.roll(q1, N // 4, axis=1), 2, axis=1)[:, :M]
+    else:
+        raise ValueError(kind)
+    return q1, q2, rng.random((P, N)) < 0.9, rng.random((P, M)) < 0.9
+
+
+def _int8_ops(q1, q2, v1, v2, encoding, prepare):
+    a1, s1, i1, coef = prepare(q1, v1, encoding)
+    a2, s2, i2, _ = prepare(q2, v2, encoding)
+    return a1, a2, s1, s2, i1, i2, coef
+
+
+def _jax_prepare(q, v, encoding):
+    return jmatching.prepare_int8_descriptors(jnp.asarray(q), jnp.asarray(v), encoding)
+
+
+def _torch_prepare(q, v, encoding):
+    return matching.prepare_int8_descriptors(torch.from_numpy(q), torch.from_numpy(v),
+                                             encoding)
+
+
+@pytest.mark.parametrize("encoding", ["signed", "unsigned"])
+def test_prepare_int8_descriptors_bit_equal(encoding):
+    q1, _, v1, _ = _u8_case("random")
+    ref = _jax_prepare(q1, v1, encoding)
+    out = _torch_prepare(q1, v1, encoding)
+    for o, r in zip(out, ref):
+        r = np.asarray(r)
+        assert o.numpy().dtype == r.dtype
+        np.testing.assert_array_equal(o.numpy(), r)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("encoding", ["signed", "unsigned"])
+def test_topk2_int8_matches_jax_kernel(encoding, kind):
+    """Identical indices and bit-equal values: the plain version rounds each
+    float operation of the epilogue on its own, in the reference's order,
+    and so does the reference on the CPU."""
+    q1, q2, v1, v2 = _u8_case(kind)
+    ref = pallas_topk2_int8(*_int8_ops(q1, q2, v1, v2, encoding, _jax_prepare),
+                            interpret=True)
+    ops = _int8_ops(q1, q2, v1, v2, encoding, _torch_prepare)
+    out = match.match_topk2_int8(*ops)
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+    if kind == "ties":  # a "last column wins" rule must give other indices
+        sim = match.int8_similarity_plain(*(x[0] for x in ops[:-1]), ops[-1])
+        last = sim.shape[1] - 1 - torch.argmax(torch.flip(sim, [-1]), dim=-1)
+        assert (last.int() != out[2][0]).sum() > 0
+
+
+@pytest.mark.parametrize("cross_check", [True, False])
+@pytest.mark.parametrize("encoding", ["signed", "unsigned"])
+def test_match_pairs_int8_matches_jax(encoding, cross_check):
+    q1, q2, v1, v2 = _u8_case("correlated")
+    ref = np.asarray(pallas_match_pairs_int8(
+        *_int8_ops(q1, q2, v1, v2, encoding, _jax_prepare), jnp.asarray(v1),
+        cross_check=cross_check, interpret=True))
+    out = match.match_pairs_int8(
+        *_int8_ops(q1, q2, v1, v2, encoding, _torch_prepare), torch.from_numpy(v1),
+        cross_check=cross_check)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert (ref >= 0).sum() > 100

@@ -107,6 +107,42 @@ def test_slice_matches_jax(tmp_path, tiny_backbone, images):
     assert _rows(jdb, "matches") == _rows(tdb, "matches")
 
 
+def test_pipeline_without_cross_check_matches_jax(tmp_path, tiny_backbone, images,
+                                                 monkeypatch):
+    """``Pipeline.run`` with ``MatchingConfig.cross_check=False`` (kernel 4's
+    path) in both packages, each on the extractor pair of the slice test:
+    the same matches in the database."""
+    from vit_colmap_tpu.pipeline import Pipeline as JaxPipeline
+    from vit_colmap_tpu.utils.config import Config as JaxConfig
+
+    jex, tex = _extractors(tmp_path)
+    jex.extract(images, tmp_path / "fit.db", "SIMPLE_PINHOLE")  # saves the PCA
+    tex._pca = None
+    tex._ensure_pca([])
+    dbs = {}
+    for name, pipe_cls, cfg_cls, ex, kw in (
+        ("jax", JaxPipeline, JaxConfig, jex, {}),
+        ("torch", Pipeline, Config, tex, {"device": "cpu"}),
+    ):
+        cfg = cfg_cls()
+        cfg.matching.cross_check = False
+        cfg.matching.do_verification = False
+        cfg.do_reconstruction = False
+        pipe = pipe_cls(cfg, **kw)
+        monkeypatch.setattr(pipe, "_make_extractor", lambda ex=ex: ex)
+        dbs[name] = tmp_path / f"{name}_pipe.db"
+        pipe.run(images, tmp_path / f"{name}_out", dbs[name])
+    matches = _rows(dbs["torch"], "matches")
+    assert matches == _rows(dbs["jax"], "matches") and len(matches) > 0
+    cross = tmp_path / "cross.db"
+    tex.extract(images, cross, "SIMPLE_PINHOLE")
+    match_exhaustive(cross, MatchingConfig(do_verification=False,
+                                           descriptor_encoding="signed"),
+                     device_descriptors=tex.device_cache, device="cpu")
+    n_cross = sum(r[1] for r in _rows(cross, "matches"))  # rows per pair
+    assert n_cross < sum(r[1] for r in matches)  # the check removes some
+
+
 def test_match_from_database_equals_device_handoff(tmp_path, tiny_backbone, images):
     _, tex = _extractors(tmp_path)
     db = tmp_path / "t.db"

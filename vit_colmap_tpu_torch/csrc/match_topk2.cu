@@ -1,19 +1,18 @@
-// Fused row top-2 and column argmax over the descriptor similarity d1 . d2^T.
+// Row top-2 of the descriptor similarity d1 . d2^T, with or without the
+// column argmax of the fused cross-check.
 //
-// Replaces the TPU kernel vit_colmap_tpu/ops/pallas/match_kernel.py:
-// pallas_topk2_colmax (body _make_topk2_colmax_kernel).  One pass over the
-// (N, M) similarity of each image pair gives
-//   * per row: (best, second, best_idx) over valid columns, invalid columns
-//     read as -2, the first column winning ties, state seeded at (-2, -2, 0)
-//     and merged with the reference's rule
-//       new_s = max(min(b_old, local_b), max(s_old, local_s)),
-//       index replaced only on a strict '>';
-//   * per (64-row tile, column): the column max over valid rows (invalid rows
-//     read as -2) and the lowest row reaching it.  The caller merges these
-//     partials over row tiles, first occurrence winning, as the reference
-//     leaves that merge to XLA.
-// Row and column results do not depend on the tiling, so this kernel's
-// 64 x 64 tiles give the reference's 512 x 512 answers.
+// Replaces two TPU kernels of vit_colmap_tpu/ops/pallas/match_kernel.py
+// with one templated body:
+//   * pallas_topk2 (body _make_topk2_kernel), kColmax = false: per row,
+//     (best, second, best_idx) over valid columns, invalid columns reading
+//     -2 (rules in topk2.cuh);
+//   * pallas_topk2_colmax (body _make_topk2_colmax_kernel), kColmax = true:
+//     the same rows, and per (64-row tile, column) the column max over valid
+//     rows (invalid rows read as -2) and the lowest row reaching it.  The
+//     caller merges these partials over row tiles, first occurrence
+//     winning, as the reference leaves that merge to XLA.
+// Results do not depend on the tiling, so 64 x 64 tiles give the
+// reference's 512 x 512 answers.
 //
 // Similarities are IEEE fp32 FMA chains in a fixed order: s = fma(a_d, b_d, s)
 // for d = 0..D-1 from s = 0, never TF32.  The plain PyTorch version repeats
@@ -26,32 +25,38 @@
 // holds a 4x4 register tile of the similarity, the d1 row tile stays in
 // shared memory while d2 column tiles stream, and both are stored transposed
 // so every 16 FMAs cost two float4 shared loads.  The top-2 bookkeeping is a
-// few compares per similarity element, kept in registers; only the column
-// partials (N/64 x M per pair) reach device memory.
+// few compares per similarity element, kept in registers; only the results
+// (and, with kColmax, the column partials, N/64 x M per pair) reach device
+// memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "topk2.cuh"
+
 namespace {
+
+using topk2::kInvalid;
 
 constexpr int kDim = 128;
 constexpr int kTileN = 64;
 constexpr int kTileM = 64;
 constexpr int kThreads = 256;  // 16 x 16 threads, each a 4x4 similarity tile
-constexpr float kInvalid = -2.f;
-constexpr int kSmemBytes =
-    (kDim * kTileN + kDim * kTileM) * 4 + 2 * 16 * kTileM * 4;
 
+template <bool kColmax>
+constexpr int smem_bytes() {
+  return (kDim * kTileN + kDim * kTileM) * 4 + (kColmax ? 2 * 16 * kTileM * 4 : 0);
+}
+
+template <bool kColmax>
 __global__ void __launch_bounds__(kThreads)
-match_topk2_colmax_kernel(const float* __restrict__ d1,
-                          const float* __restrict__ d2,
-                          const uint8_t* __restrict__ valid1,
-                          const uint8_t* __restrict__ valid2,
-                          float* __restrict__ best, float* __restrict__ second,
-                          int* __restrict__ best_idx,
-                          float* __restrict__ col_val,
-                          int* __restrict__ col_row, int n, int m) {
+match_topk2_kernel(const float* __restrict__ d1, const float* __restrict__ d2,
+                   const uint8_t* __restrict__ valid1,
+                   const uint8_t* __restrict__ valid2,
+                   float* __restrict__ best, float* __restrict__ second,
+                   int* __restrict__ best_idx, float* __restrict__ col_val,
+                   int* __restrict__ col_row, int n, int m) {
   extern __shared__ float smem[];
   float* as = smem;                    // [d][row]  d1 tile, transposed
   float* bs = as + kDim * kTileN;      // [d][col]  d2 tile, transposed
@@ -67,7 +72,6 @@ match_topk2_colmax_kernel(const float* __restrict__ d1,
   const int num_row_tiles = gridDim.x;
   const float* A = d1 + (size_t)p * n * kDim;
   const float* B = d2 + (size_t)p * m * kDim;
-  const uint8_t* v1 = valid1 + (size_t)p * n;
   const uint8_t* v2 = valid2 + (size_t)p * m;
 
   // Row tile of d1, loaded once.  A warp covers 32 consecutive rows of one
@@ -85,14 +89,14 @@ match_topk2_colmax_kernel(const float* __restrict__ d1,
   }
 
   bool row_ok[4];     // row exists (< n)
-  bool row_valid[4];  // row exists and is a valid keypoint
+  bool row_valid[4];  // row exists and is a valid keypoint (kColmax only)
   float rb[4], rs[4];
   int ri[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = r0 + 4 * ty + i;
     row_ok[i] = row < n;
-    row_valid[i] = row_ok[i] && v1[row] != 0;
+    row_valid[i] = kColmax && row_ok[i] && valid1[(size_t)p * n + row] != 0;
     rb[i] = kInvalid;
     rs[i] = kInvalid;
     ri[i] = 0;
@@ -140,17 +144,9 @@ match_topk2_colmax_kernel(const float* __restrict__ d1,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float s = col_valid ? acc[i][j] : kInvalid;
-        if (col_ok) {
-          // Columns reach a thread in increasing order: ties keep the first.
-          if (s > rb[i]) {
-            rs[i] = rb[i];
-            rb[i] = s;
-            ri[i] = col;
-          } else if (s > rs[i]) {
-            rs[i] = s;
-          }
-        }
-        if (row_ok[i]) {
+        // Columns reach a thread in increasing order: ties keep the first.
+        if (col_ok) topk2::push(s, col, rb[i], rs[i], ri[i]);
+        if (kColmax && row_ok[i]) {
           const float sr = row_valid[i] ? s : kInvalid;
           if (sr > cbest) {
             cbest = sr;
@@ -158,46 +154,53 @@ match_topk2_colmax_kernel(const float* __restrict__ d1,
           }
         }
       }
-      cv[ty * kTileM + 4 * tx + j] = cbest;
-      ci[ty * kTileM + 4 * tx + j] = crow;
-    }
-    __syncthreads();
-    if (tid < kTileM && c0 + tid < m) {
-      float vbest = cv[tid];
-      int vrow = ci[tid];
-      for (int t = 1; t < 16; ++t) {  // rows increase with t: strict '>'
-        const float v = cv[t * kTileM + tid];
-        if (v > vbest) {
-          vbest = v;
-          vrow = ci[t * kTileM + tid];
-        }
+      if (kColmax) {
+        cv[ty * kTileM + 4 * tx + j] = cbest;
+        ci[ty * kTileM + 4 * tx + j] = crow;
       }
-      const size_t o = ((size_t)p * num_row_tiles + rt) * m + c0 + tid;
-      col_val[o] = vbest;
-      col_row[o] = vrow;
+    }
+    if (kColmax) {
+      __syncthreads();
+      if (tid < kTileM && c0 + tid < m) {
+        float vbest = cv[tid];
+        int vrow = ci[tid];
+        for (int t = 1; t < 16; ++t) {  // rows increase with t: strict '>'
+          const float v = cv[t * kTileM + tid];
+          if (v > vbest) {
+            vbest = v;
+            vrow = ci[t * kTileM + tid];
+          }
+        }
+        const size_t o = ((size_t)p * num_row_tiles + rt) * m + c0 + tid;
+        col_val[o] = vbest;
+        col_row[o] = vrow;
+      }
     }
   }
 
-  // Merge the 16 per-thread row states of each row (lanes of a half-warp).
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, rb[i], off);
-      const float os = __shfl_xor_sync(0xffffffffu, rs[i], off);
-      const int oi = __shfl_xor_sync(0xffffffffu, ri[i], off);
-      const float ns = fmaxf(fminf(rb[i], ob), fmaxf(rs[i], os));
-      if (ob > rb[i] || (ob == rb[i] && oi < ri[i])) ri[i] = oi;
-      rb[i] = fmaxf(rb[i], ob);
-      rs[i] = ns;
-    }
-    const int row = r0 + 4 * ty + i;
-    if (tx == 0 && row < n) {
-      best[(size_t)p * n + row] = rb[i];
-      second[(size_t)p * n + row] = rs[i];
-      best_idx[(size_t)p * n + row] = ri[i];
-    }
-  }
+  const size_t out0 = (size_t)p * n;
+  topk2::merge_store(rb, rs, ri, r0, ty, tx, n, best + out0, second + out0,
+                     best_idx + out0);
+}
+
+template <bool kColmax>
+int launch(const void* d1, const void* d2, const void* valid1,
+           const void* valid2, void* best, void* second, void* best_idx,
+           void* col_val, void* col_row, int pairs, int n, int m,
+           void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      match_topk2_kernel<kColmax>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<kColmax>());
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + kTileN - 1) / kTileN, pairs);
+  match_topk2_kernel<kColmax>
+      <<<grid, kThreads, smem_bytes<kColmax>(), (cudaStream_t)stream>>>(
+          static_cast<const float*>(d1), static_cast<const float*>(d2),
+          static_cast<const uint8_t*>(valid1),
+          static_cast<const uint8_t*>(valid2), static_cast<float*>(best),
+          static_cast<float*>(second), static_cast<int*>(best_idx),
+          static_cast<float*>(col_val), static_cast<int*>(col_row), n, m);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -206,17 +209,14 @@ extern "C" int match_topk2_colmax_launch(
     const void* d1, const void* d2, const void* valid1, const void* valid2,
     void* best, void* second, void* best_idx, void* col_val, void* col_row,
     int pairs, int n, int m, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      match_topk2_colmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + kTileN - 1) / kTileN, pairs);
-  match_topk2_colmax_kernel<<<grid, kThreads, kSmemBytes,
-                              (cudaStream_t)stream>>>(
-      static_cast<const float*>(d1), static_cast<const float*>(d2),
-      static_cast<const uint8_t*>(valid1), static_cast<const uint8_t*>(valid2),
-      static_cast<float*>(best), static_cast<float*>(second),
-      static_cast<int*>(best_idx), static_cast<float*>(col_val),
-      static_cast<int*>(col_row), n, m);
-  return (int)cudaGetLastError();
+  return launch<true>(d1, d2, valid1, valid2, best, second, best_idx, col_val,
+                      col_row, pairs, n, m, stream);
+}
+
+extern "C" int match_topk2_launch(const void* d1, const void* d2,
+                                  const void* valid2, void* best, void* second,
+                                  void* best_idx, int pairs, int n, int m,
+                                  void* stream) {
+  return launch<false>(d1, d2, nullptr, valid2, best, second, best_idx,
+                       nullptr, nullptr, pairs, n, m, stream);
 }

@@ -1,25 +1,29 @@
-"""Kernel 1: fixed-max softmax attention on the packed qkv projection.
+"""Kernels 1 and 3: fixed-max softmax attention, on the packed qkv projection
+and on head-major tensors.
 
-Counterpart of ``vit_colmap_tpu/ops/pallas/attention_kernel.py``
-``fixed_max_attention_qkv``; the CUDA source is ``csrc/attention_qkv.cu``.
+Counterparts of ``vit_colmap_tpu/ops/pallas/attention_kernel.py``
+``fixed_max_attention_qkv`` (:func:`attention_qkv`) and
+``fixed_max_attention`` (:func:`fixed_max_attention`).  Both launch one CUDA
+body, ``csrc/fixed_max_attention.cu``, which reads strided (batch, head,
+token, dim) views: the packed layout is a set of strides, not a copy.
 
-(B, N, 3*D) packed ``[q | k | v]`` (head h at columns 64h..64h+63 of each
-section) -> (B, N, D).  Numerics: q is scaled by ``sm_scale * log2(e)`` in
-f32 and rounded back to the input dtype, ``p = exp2(min(s, 100))`` with no
-running max, p rounded to bf16, f32 sums, denominator floored at 1e-30.
-Inference only.
+Numerics: q is scaled by ``sm_scale * log2(e)`` in f32 and rounded back to
+the input dtype, ``p = exp2(min(s, 100))`` with no running max, p rounded to
+bf16, f32 sums, denominator floored at 1e-30.  Inference only.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from vit_colmap_tpu_torch.kernels import launches
+
 LOG2E = math.log2(math.e)
 CLAMP = 100.0
-
-launches = 0  # kernel launches since the last reset
+MAX_HEAD_DIM = 64
 
 
 def _check_layout(qkv: torch.Tensor, num_heads: int) -> int:
@@ -34,57 +38,121 @@ def _check_layout(qkv: torch.Tensor, num_heads: int) -> int:
     return three_d // 3
 
 
+def _check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            "q, k, v must share one (B, H, N, d) shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(
+            f"fixed_max_attention is specialized for head_dim <= {MAX_HEAD_DIM}, "
+            f"got {q.shape[-1]}"
+        )
+
+
+def _split_heads(qkv: torch.Tensor, num_heads: int):
+    """(B, N, 3*D) packed ``[q | k | v]`` -> three (B, H, N, 64) views."""
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    return tuple(
+        qkv[..., i * D : (i + 1) * D].view(B, N, num_heads, 64).transpose(1, 2)
+        for i in range(3)
+    )
+
+
+def _empty_out(q: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, d) view of a (B, N, H, d) tensor: merging the heads back
+    into (B, N, H*d) is then a free reshape."""
+    B, H, N, d = q.shape
+    return torch.empty(B, N, H, d, dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
+def fixed_max_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float
+) -> torch.Tensor:
+    """Plain PyTorch version: the kernel's arithmetic, one (image, head) at a
+    time so that only one (N, N) score matrix is live."""
+    _check_heads(q, k, v)
+    out = _empty_out(q)
+    scale = float(sm_scale) * LOG2E
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            qs = (q[b, h].float() * scale).to(q.dtype).float()
+            s = qs @ k[b, h].float().T
+            p = torch.exp2(torch.clamp_max(s, CLAMP)).to(torch.bfloat16).float()
+            den = p.sum(-1, keepdim=True).clamp_min(1e-30)
+            out[b, h] = ((p @ v[b, h].float()) / den).to(q.dtype)
+    return out
+
+
 def attention_qkv_plain(
     qkv: torch.Tensor, num_heads: int, sm_scale: float
 ) -> torch.Tensor:
-    """Plain PyTorch version: the kernel's arithmetic, one head at a time so
-    that only one (N, N) score matrix per image is live."""
-    D = _check_layout(qkv, num_heads)
-    B, N, _ = qkv.shape
-    out = torch.empty(B, N, D, dtype=qkv.dtype, device=qkv.device)
-    scale = float(sm_scale) * LOG2E
-    for h in range(num_heads):
-        q = qkv[..., 64 * h : 64 * h + 64].float() * scale
-        q = q.to(qkv.dtype).float()
-        k = qkv[..., D + 64 * h : D + 64 * h + 64].float()
-        v = qkv[..., 2 * D + 64 * h : 2 * D + 64 * h + 64].float()
-        for b in range(B):
-            s = q[b] @ k[b].T
-            p = torch.exp2(torch.clamp_max(s, CLAMP)).to(torch.bfloat16).float()
-            den = p.sum(-1, keepdim=True).clamp_min(1e-30)
-            out[b, :, 64 * h : 64 * h + 64] = ((p @ v[b]) / den).to(qkv.dtype)
+    """Plain PyTorch version of :func:`attention_qkv`."""
+    _check_layout(qkv, num_heads)
+    out = fixed_max_attention_plain(*_split_heads(qkv, num_heads), sm_scale)
+    return out.transpose(1, 2).reshape(qkv.shape[0], qkv.shape[1], -1)
+
+
+def _launch(q, k, v, out, sm_scale: float, name: str) -> None:
+    """One launch of the CUDA kernel on (B, H, N, d) views."""
+    from vit_colmap_tpu_torch.kernels.build import check, library
+
+    if out.device.type != "cuda":
+        raise ValueError(f"{name} kernel runs on CUDA tensors, got {out.device}")
+    for t in (q, k, v):
+        if t.device != out.device or t.dtype != torch.bfloat16:
+            raise ValueError(
+                f"{name} kernel takes bf16 tensors on one CUDA device, got "
+                f"{t.dtype} on {t.device}"
+            )
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} kernel needs unit stride along head_dim")
+    B, H, N, d = q.shape
+    if B == 0 or H == 0 or N == 0 or d == 0:
+        return
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().fixed_max_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, N, d,
+            (ctypes.c_longlong * 12)(*strides), float(sm_scale) * LOG2E, stream,
+        )
+    check(err, name)
+    launches[name] += 1
+
+
+def fixed_max_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float
+) -> torch.Tensor:
+    """Kernel 3: (B, H, N, d <= 64) -> (B, H, N, d), non-causal.
+
+    Takes strided views (unit stride along d), so a caller can pass the
+    permuted heads of its qkv projection without a copy.  The result is a
+    (B, H, N, d) view of (B, N, H, d) storage.  CUDA tensors (bf16) go to
+    the kernel, CPU tensors (f32 or bf16) to the plain version."""
+    _check_heads(q, k, v)
+    if q.device.type == "cpu":
+        return fixed_max_attention_plain(q, k, v, sm_scale)
+    out = _empty_out(q)
+    _launch(q, k, v, out, sm_scale, "fixed_max_attention")
     return out
 
 
 def attention_qkv(
     qkv: torch.Tensor, num_heads: int, sm_scale: float
 ) -> torch.Tensor:
-    """Packed-qkv attention: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    """Kernel 1: packed (B, N, 3*D) ``[q | k | v]`` (head h at columns
+    64h..64h+63 of each section) -> (B, N, D).  The CUDA kernel for a CUDA
+    tensor (bf16, contiguous), the plain version for a CPU tensor."""
     if qkv.device.type == "cpu":
         return attention_qkv_plain(qkv, num_heads, sm_scale)
-    global launches
-    from vit_colmap_tpu_torch.kernels.build import check, library
-
     D = _check_layout(qkv, num_heads)
-    if qkv.device.type != "cuda" or qkv.dtype != torch.bfloat16:
-        raise ValueError(
-            f"attention_qkv kernel takes bf16 CUDA tensors, got {qkv.dtype} "
-            f"on {qkv.device}"
-        )
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("attention_qkv kernel needs a contiguous, 16-byte "
-                         "aligned qkv")
+    if not qkv.is_contiguous():
+        raise ValueError("attention_qkv kernel needs a contiguous qkv")
     B, N, _ = qkv.shape
-    out = torch.empty(B, N, D, dtype=qkv.dtype, device=qkv.device)
-    if B == 0 or N == 0:
-        return out
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library().attention_qkv_launch(
-            qkv.data_ptr(), out.data_ptr(), B, N, num_heads,
-            float(sm_scale) * LOG2E, stream,
-        )
-    check(err, "attention_qkv")
-    launches += 1
-    return out
+    q, k, v = _split_heads(qkv, num_heads)
+    out = _empty_out(q)
+    _launch(q, k, v, out, sm_scale, "attention_qkv")
+    return out.transpose(1, 2).reshape(B, N, D)

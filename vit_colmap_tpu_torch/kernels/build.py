@@ -31,11 +31,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # launcher name -> argument types; every launcher returns a cudaError_t.
 SIGNATURES = {
-    # qkv, out, batch, n, num_heads, q_scale, stream
-    "attention_qkv_launch": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
+    # q, k, v, out, batch, heads, n, d, strides (int64[12]), q_scale, stream
+    "fixed_max_attention_launch": [_P] * 4 + [_I] * 4
+    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _P],
     # d1, d2, valid1, valid2, best, second, best_idx, col_val, col_row,
     # pairs, n, m, stream
     "match_topk2_colmax_launch": [_P] * 9 + [_I, _I, _I, _P],
+    # d1, d2, valid2, best, second, best_idx, pairs, n, m, stream
+    "match_topk2_launch": [_P] * 6 + [_I, _I, _I, _P],
+    # a1, a2, s1, s2, inv1, inv2, coef, best, second, best_idx, pairs, n, m,
+    # stream
+    "match_topk2_int8_launch": [_P] * 10 + [_I, _I, _I, _P],
 }
 
 

@@ -1,23 +1,36 @@
-"""Kernel 2: fused row top-2 + column argmax for mutual-NN matching.
+"""Kernels 2, 4 and 5: row top-2 matching of descriptor pairs.
 
-Counterpart of ``vit_colmap_tpu/ops/pallas/match_kernel.py``
-``pallas_topk2_colmax`` and ``pallas_match_pairs``; the CUDA source is
-``csrc/match_topk2_colmax.cu``.
+Counterparts of ``vit_colmap_tpu/ops/pallas/match_kernel.py``:
 
-Similarities are fp32 FMA chains in a fixed order over the descriptor
-dimension (``s = fma(d1[d], d2[d], s)`` for d = 0..D-1).  The plain version
-repeats that order, so kernel and plain version agree bit for bit and break
-near-ties the same way.
+* :func:`match_topk2_colmax` (kernel 2, ``pallas_topk2_colmax``): row top-2
+  and column argmax in one pass, ``csrc/match_topk2.cu``;
+* :func:`match_topk2` (kernel 4, ``pallas_topk2``): row top-2 only, the same
+  CUDA body without the column partials;
+* :func:`match_topk2_int8` (kernel 5, ``pallas_topk2_int8``): row top-2 of
+  the exact cosine of uint8 descriptors from int8 dot products,
+  ``csrc/match_topk2_int8.cu``;
+* :func:`match_pairs` / :func:`match_pairs_int8` (``pallas_match_pairs`` /
+  ``pallas_match_pairs_int8``): the kernels plus the COLMAP filter.
+
+Row top-2 rules, shared by all three: invalid columns read as -2, the
+state is seeded at (-2, -2, index 0), the first column reaching the max
+wins, and the second is the max over every other column.
+
+Float similarities are fp32 FMA chains in a fixed order over the descriptor
+dimension (``s = fma(d1[d], d2[d], s)`` for d = 0..D-1); the int8 epilogue
+is separately rounded f32 operations in the reference's order.  The plain
+versions repeat both, so kernels and plain versions agree bit for bit and
+break near-ties the same way.
 """
 
 from __future__ import annotations
 
 import torch
 
-DIM = 128  # descriptor width the kernel is compiled for
-TILE_N = 64  # row tile of the kernel's column partials
+from vit_colmap_tpu_torch.kernels import launches
 
-launches = 0  # kernel launches since the last reset
+DIM = 128  # descriptor width the kernels are compiled for
+TILE_N = 64  # row tile of kernel 2's column partials
 
 
 def similarity_plain(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
@@ -34,37 +47,125 @@ def similarity_plain(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def int8_similarity_plain(a1, a2, s1, s2, inv1, inv2, coef) -> torch.Tensor:
+    """(N, D) x (M, D) int8 -> (N, M) f32 cosine, -2 where ``inv2 == 0``.
+
+    ``acc`` is the exact integer dot product (computed in f64, exact for
+    these ranges, since CUDA has no integer matmul); every float operation
+    after it is rounded on its own, in the reference's order."""
+    acc = (a1.double() @ a2.double().T).float()
+    dot = coef[0] * acc + coef[1] * (s1[:, None] + s2[None, :]) + coef[2]
+    sim = dot * inv1[:, None] * inv2[None, :]
+    return torch.where(inv2[None, :] > 0, sim, -2.0)
+
+
+def _row_top2(sim: torch.Tensor):
+    """(N, M) similarities -> (best, second, best_idx) with the kernels'
+    seed (-2, -2, 0) and first-column tie rule."""
+    top = torch.topk(sim, 2, dim=1).values
+    idx = torch.argmax(sim, dim=1)  # the first maximum
+    best = top[:, 0].clamp_min(-2.0)
+    second = top[:, 1].clamp_min(-2.0)
+    return best, second, torch.where(top[:, 0] > -2.0, idx, 0).int()
+
+
+def _row_results(P: int, N: int, device):
+    best = torch.empty(P, N, dtype=torch.float32, device=device)
+    return best, torch.empty_like(best), torch.empty(P, N, dtype=torch.int32,
+                                                     device=device)
+
+
 def topk2_colmax_plain(
     d1: torch.Tensor, d2: torch.Tensor, valid1: torch.Tensor, valid2: torch.Tensor
 ):
     """Plain PyTorch version of :func:`match_topk2_colmax`, one pair at a
     time so only one (N, M) similarity is live."""
     P, N, _ = d1.shape
-    best = torch.empty(P, N, dtype=torch.float32, device=d1.device)
-    second = torch.empty_like(best)
-    best_idx = torch.empty(P, N, dtype=torch.int32, device=d1.device)
+    best, second, best_idx = _row_results(P, N, d1.device)
     col_row = torch.empty(P, d2.shape[1], dtype=torch.int32, device=d1.device)
     for p in range(P):
         sim = similarity_plain(d1[p], d2[p])
         sim = torch.where(valid2[p][None, :], sim, -2.0)
-        top = torch.topk(sim, 2, dim=1).values
-        # Seeded at (-2, -2, index 0) and replaced on a strict '>': the first
-        # column reaching the max wins (argmax returns the first maximum).
-        idx = torch.argmax(sim, dim=1)
-        best[p] = top[:, 0].clamp_min(-2.0)
-        second[p] = top[:, 1].clamp_min(-2.0)
-        best_idx[p] = torch.where(top[:, 0] > -2.0, idx, 0).int()
+        best[p], second[p], best_idx[p] = _row_top2(sim)
         sim_r = torch.where(valid1[p][:, None], sim, -2.0)
         col_row[p] = torch.argmax(sim_r, dim=0).int()
     return best, second, best_idx, col_row
 
 
-def _check(d1, d2, valid1, valid2):
-    P, N, D = d1.shape
-    if d2.dim() != 3 or d2.shape[0] != P or d2.shape[2] != D:
-        raise ValueError(f"d1 {tuple(d1.shape)} and d2 {tuple(d2.shape)} differ")
-    if valid1.shape != (P, N) or valid2.shape != (P, d2.shape[1]):
-        raise ValueError("valid masks must be (P, N) and (P, M)")
+def topk2_plain(d1: torch.Tensor, d2: torch.Tensor, valid2: torch.Tensor):
+    """Plain PyTorch version of :func:`match_topk2`, one pair at a time."""
+    P, N, _ = d1.shape
+    best, second, best_idx = _row_results(P, N, d1.device)
+    for p in range(P):
+        sim = torch.where(valid2[p][None, :], similarity_plain(d1[p], d2[p]), -2.0)
+        best[p], second[p], best_idx[p] = _row_top2(sim)
+    return best, second, best_idx
+
+
+def topk2_int8_plain(a1, a2, s1, s2, inv1, inv2, coef):
+    """Plain PyTorch version of :func:`match_topk2_int8`, one pair at a
+    time."""
+    P, N, _ = a1.shape
+    best, second, best_idx = _row_results(P, N, a1.device)
+    for p in range(P):
+        sim = int8_similarity_plain(a1[p], a2[p], s1[p], s2[p], inv1[p],
+                                    inv2[p], coef)
+        best[p], second[p], best_idx[p] = _row_top2(sim)
+    return best, second, best_idx
+
+
+def _check_pair(x1: torch.Tensor, x2: torch.Tensor, rows: dict, name: str):
+    """Shapes of a (P, N, D) x (P, M, D) call and of its per-row tensors
+    (``rows``: label -> (tensor, 1 for x1's rows or 2 for x2's))."""
+    if x1.dim() != 3:
+        raise ValueError(f"{name}: descriptors must be (P, N, D), got {tuple(x1.shape)}")
+    P, N, D = x1.shape
+    if x2.dim() != 3 or x2.shape[0] != P or x2.shape[2] != D:
+        raise ValueError(f"{name}: {tuple(x1.shape)} and {tuple(x2.shape)} differ")
+    for label, (t, side) in rows.items():
+        want = (P, N if side == 1 else x2.shape[1])
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: {label} must be {want}, got {tuple(t.shape)}")
+
+
+def _check_cuda(name: str, desc, masks, floats, desc_dtype: torch.dtype) -> None:
+    """The kernels' input contract on the card: one CUDA device, contiguous;
+    ``desc`` (the two descriptor tensors) of ``desc_dtype``, width DIM and
+    16-byte aligned, ``masks`` bool, ``floats`` f32; non-empty."""
+    tensors = (*desc, *masks, *floats)
+    for t in tensors:
+        if t.device != desc[0].device or t.device.type != "cuda":
+            raise ValueError(f"{name} kernel: all inputs on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel: contiguous inputs only")
+    if any(t.dtype != desc_dtype for t in desc):
+        raise ValueError(f"{name} kernel takes {desc_dtype} descriptors")
+    if any(t.data_ptr() % 16 for t in desc):
+        raise ValueError(f"{name} kernel needs 16-byte aligned rows")
+    if any(t.dtype != torch.bool for t in masks):
+        raise ValueError(f"{name} kernel takes bool masks")
+    if any(t.dtype != torch.float32 for t in floats):
+        raise ValueError(f"{name} kernel takes f32 row sums, norms and coef")
+    P, N, D = desc[0].shape
+    if D != DIM:
+        raise NotImplementedError(
+            f"{name} kernel is built for D={DIM}, got {D}: other widths are "
+            "not ported yet"
+        )
+    if P == 0 or N == 0 or desc[1].shape[1] == 0:
+        raise ValueError(f"{name} kernel needs non-empty inputs")
+
+
+def _run(name: str, *args) -> None:
+    from vit_colmap_tpu_torch.kernels.build import check, library
+
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        err = getattr(library(), f"{name}_launch")(*ptrs, stream)
+    check(err, name)
+    launches[name] += 1
 
 
 def match_topk2_colmax(
@@ -72,58 +173,63 @@ def match_topk2_colmax(
 ):
     """(best, second, best_idx, col_row) for (P, N, D) x (P, M, D) f32.
 
-    ``best``/``second``/``best_idx`` are each row's top-2 over valid columns
-    (invalid columns read as -2, first column wins ties); ``col_row`` is each
-    column's argmax row over valid rows (first row wins).  CUDA tensors go to
-    the kernel, CPU tensors to the plain version."""
-    _check(d1, d2, valid1, valid2)
+    ``best``/``second``/``best_idx`` are each row's top-2 over valid columns;
+    ``col_row`` is each column's argmax row over valid rows (first row
+    wins).  CUDA tensors go to the kernel, CPU tensors to the plain
+    version."""
+    _check_pair(d1, d2, {"valid1": (valid1, 1), "valid2": (valid2, 2)},
+                "match_topk2_colmax")
     if d1.device.type == "cpu":
         return topk2_colmax_plain(d1, d2, valid1, valid2)
-    global launches
-    from vit_colmap_tpu_torch.kernels.build import check, library
-
-    for t in (d1, d2, valid1, valid2):
-        if t.device != d1.device or t.device.type != "cuda":
-            raise ValueError("match_topk2_colmax kernel: all inputs on one "
-                             "CUDA device")
-        if not t.is_contiguous():
-            raise ValueError("match_topk2_colmax kernel: contiguous inputs only")
-    if d1.dtype != torch.float32 or d2.dtype != torch.float32:
-        raise ValueError("match_topk2_colmax kernel takes f32 descriptors")
-    if d1.data_ptr() % 16 or d2.data_ptr() % 16:
-        raise ValueError("match_topk2_colmax kernel needs 16-byte aligned rows")
-    if valid1.dtype != torch.bool or valid2.dtype != torch.bool:
-        raise ValueError("match_topk2_colmax kernel takes bool masks")
-    P, N, D = d1.shape
+    _check_cuda("match_topk2_colmax", (d1, d2), (valid1, valid2), (), torch.float32)
+    P, N, _ = d1.shape
     M = d2.shape[1]
-    if D != DIM:
-        raise NotImplementedError(
-            f"match_topk2_colmax kernel is built for D={DIM}, got {D}: other "
-            "widths are not ported yet"
-        )
-    if P == 0 or N == 0 or M == 0:
-        raise ValueError("match_topk2_colmax kernel needs non-empty inputs")
     nt = -(-N // TILE_N)
-    dev = d1.device
-    best = torch.empty(P, N, dtype=torch.float32, device=dev)
-    second = torch.empty(P, N, dtype=torch.float32, device=dev)
-    best_idx = torch.empty(P, N, dtype=torch.int32, device=dev)
-    col_val = torch.empty(P, nt, M, dtype=torch.float32, device=dev)
-    col_part = torch.empty(P, nt, M, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library().match_topk2_colmax_launch(
-            d1.data_ptr(), d2.data_ptr(), valid1.data_ptr(), valid2.data_ptr(),
-            best.data_ptr(), second.data_ptr(), best_idx.data_ptr(),
-            col_val.data_ptr(), col_part.data_ptr(), P, N, M, stream,
-        )
-    check(err, "match_topk2_colmax")
-    launches += 1
+    best, second, best_idx = _row_results(P, N, d1.device)
+    col_val = torch.empty(P, nt, M, dtype=torch.float32, device=d1.device)
+    col_part = torch.empty(P, nt, M, dtype=torch.int32, device=d1.device)
+    _run("match_topk2_colmax", d1, d2, valid1, valid2, best, second, best_idx,
+         col_val, col_part, P, N, M)
     # Merge the per-row-tile column partials: the first tile holding the
     # max wins (argmax returns the first maximum), as in the reference.
     blk = torch.argmax(col_val, dim=1, keepdim=True)
     col_row = torch.take_along_dim(col_part, blk, dim=1)[:, 0]
     return best, second, best_idx, col_row
+
+
+def match_topk2(d1: torch.Tensor, d2: torch.Tensor, valid2: torch.Tensor):
+    """(best, second, best_idx): each row's top-2 over the valid columns of
+    (P, N, D) x (P, M, D) f32.  CUDA tensors go to the kernel, CPU tensors to
+    the plain version."""
+    _check_pair(d1, d2, {"valid2": (valid2, 2)}, "match_topk2")
+    if d1.device.type == "cpu":
+        return topk2_plain(d1, d2, valid2)
+    _check_cuda("match_topk2", (d1, d2), (valid2,), (), torch.float32)
+    P, N, _ = d1.shape
+    best, second, best_idx = _row_results(P, N, d1.device)
+    _run("match_topk2", d1, d2, valid2, best, second, best_idx, P, N, d2.shape[1])
+    return best, second, best_idx
+
+
+def match_topk2_int8(a1, a2, s1, s2, inv1, inv2, coef):
+    """(best, second, best_idx) over the exact cosines of (P, N, D) x
+    (P, M, D) int8 descriptors ``a = q - 128`` with row sums ``s``, inverse
+    norms ``inv`` (0 marks an invalid row) and (3,) ``coef`` from
+    :func:`vit_colmap_tpu_torch.ops.matching.prepare_int8_descriptors`.
+    CUDA tensors go to the kernel, CPU tensors to the plain version."""
+    _check_pair(a1, a2, {"s1": (s1, 1), "s2": (s2, 2), "inv1": (inv1, 1),
+                         "inv2": (inv2, 2)}, "match_topk2_int8")
+    if coef.shape != (3,):
+        raise ValueError(f"match_topk2_int8: coef must be (3,), got {tuple(coef.shape)}")
+    if a1.device.type == "cpu":
+        return topk2_int8_plain(a1, a2, s1, s2, inv1, inv2, coef)
+    _check_cuda("match_topk2_int8", (a1, a2), (), (s1, s2, inv1, inv2, coef),
+                torch.int8)
+    P, N, _ = a1.shape
+    best, second, best_idx = _row_results(P, N, a1.device)
+    _run("match_topk2_int8", a1, a2, s1, s2, inv1, inv2, coef, best, second,
+         best_idx, P, N, a2.shape[1])
+    return best, second, best_idx
 
 
 def filter_matches(
@@ -138,8 +244,8 @@ def filter_matches(
 ) -> torch.Tensor:
     """COLMAP-style filters on the top-2 results -> (P, N) int32, -1 = none:
     keep a row iff arccos(best) <= max_distance, arccos(best) <= max_ratio *
-    arccos(second) and, with ``cross_check``, the best column's best row is
-    this row."""
+    arccos(second) and, with ``cross_check``, the best column's best row
+    (``col_row``) is this row."""
     dist_best = torch.arccos(best.clamp(-1.0, 1.0))
     dist_second = torch.arccos(second.clamp(-1.0, 1.0))
     keep = valid1 & (dist_best <= max_distance)
@@ -158,12 +264,37 @@ def match_pairs(
     max_ratio: float = 0.8,
     max_distance: float = 0.7,
     cross_check: bool = True,
+    fused_cross: bool = True,
 ) -> torch.Tensor:
     """Mutual-NN matching of (P, N, D) x (P, M, D) -> (P, N) int32.
 
-    Counterpart of ``pallas_match_pairs`` with ``fused_cross=True``: one
-    :func:`match_topk2_colmax` pass, then :func:`filter_matches`."""
-    return filter_matches(
-        *match_topk2_colmax(d1, d2, valid1, valid2), valid1,
-        max_ratio, max_distance, cross_check,
-    )
+    Counterpart of ``pallas_match_pairs``: with ``cross_check`` and
+    ``fused_cross`` one :func:`match_topk2_colmax` pass; otherwise
+    :func:`match_topk2`, run a second time with the arguments swapped for a
+    two-pass cross-check.  Then :func:`filter_matches`."""
+    if cross_check and fused_cross:
+        return filter_matches(*match_topk2_colmax(d1, d2, valid1, valid2),
+                              valid1, max_ratio, max_distance, cross_check)
+    best, second, best_idx = match_topk2(d1, d2, valid2)
+    col_row = match_topk2(d2, d1, valid1)[2] if cross_check else None
+    return filter_matches(best, second, best_idx, col_row, valid1,
+                          max_ratio, max_distance, cross_check)
+
+
+def match_pairs_int8(
+    a1, a2, s1, s2, inv1, inv2, coef,
+    valid1: torch.Tensor,
+    max_ratio: float = 0.8,
+    max_distance: float = 0.7,
+    cross_check: bool = True,
+) -> torch.Tensor:
+    """Counterpart of ``pallas_match_pairs_int8``: :func:`match_topk2_int8`,
+    a second call with the arguments swapped for the cross-check, and
+    :func:`filter_matches` (``valid1`` for the keep mask; ``inv`` encodes
+    validity too)."""
+    best, second, best_idx = match_topk2_int8(a1, a2, s1, s2, inv1, inv2, coef)
+    col_row = None
+    if cross_check:
+        col_row = match_topk2_int8(a2, a1, s2, s1, inv2, inv1, coef)[2]
+    return filter_matches(best, second, best_idx, col_row, valid1,
+                          max_ratio, max_distance, cross_check)

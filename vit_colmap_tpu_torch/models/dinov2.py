@@ -54,10 +54,11 @@ class ViTConfig:
     pretrain_grid: int = 37  # grid the pretrained pos-embed was trained at
     dtype: torch.dtype = torch.bfloat16
     quantize: str = "none"
-    # "fixedmax_fused" (kernel 1 under the reference's gate) or "xla"
-    # (eager softmax).  "fixedmax", "flash" and "auto" are not ported yet,
-    # so the default is "fixedmax_fused" where the reference's is "auto".
-    attn_impl: str = "fixedmax_fused"
+    # "auto" (PyTorch's fused attention on the GPU for long sequences),
+    # "xla" (eager softmax), "flash" (fused attention on the GPU), or the
+    # inference-only fixed-max kernels: "fixedmax" (kernel 3, head-major)
+    # and "fixedmax_fused" (kernel 1, packed qkv).  See ``Attention``.
+    attn_impl: str = "auto"
     gelu: str = "tanh"  # "tanh" (approximate) | "erf" (exact, torch nn.GELU)
 
     @classmethod
@@ -67,7 +68,7 @@ class ViTConfig:
         return cls(**{**VIT_CONFIGS[name], **overrides})
 
 
-_NOT_PORTED = ("fixedmax", "flash", "auto")
+ATTN_IMPLS = ("auto", "xla", "flash", "fixedmax", "fixedmax_fused")
 
 
 def _check_supported(c: ViTConfig) -> None:
@@ -77,13 +78,8 @@ def _check_supported(c: ViTConfig) -> None:
         raise NotImplementedError("register tokens are not ported yet; see ROADMAP.md")
     if c.quantize != "none":
         raise NotImplementedError("quantize='int8' is not ported yet; see ROADMAP.md")
-    if c.attn_impl in _NOT_PORTED:
-        raise NotImplementedError(
-            f"attn_impl={c.attn_impl!r} is not ported yet (use 'fixedmax_fused' "
-            "or 'xla'); see ROADMAP.md"
-        )
-    if c.attn_impl not in ("fixedmax_fused", "xla"):
-        raise ValueError(f"unknown attn_impl {c.attn_impl!r}")
+    if c.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {c.attn_impl!r}; options: {ATTN_IMPLS}")
     if c.gelu not in ("tanh", "erf"):
         raise ValueError(f"unknown gelu {c.gelu!r}")
 
@@ -107,7 +103,23 @@ class LayerScale(nn.Module):
         return x * self.gamma.to(x.dtype)
 
 
+def _use_sdpa(impl: str, n_tokens: int, device: torch.device) -> bool:
+    """Where the reference takes JAX's library flash kernel (on its
+    accelerator only), the port takes PyTorch's fused attention (on CUDA
+    only): always for "flash", from KERNEL_MIN_TOKENS tokens for the rest."""
+    if impl == "xla" or device.type != "cuda":
+        return False
+    return impl == "flash" or n_tokens >= KERNEL_MIN_TOKENS
+
+
 class Attention(nn.Module):
+    """Multi-head self-attention.  ``attn_impl`` picks the softmax, with the
+    reference's gates: "fixedmax_fused" takes kernel 1 for head_dim 64, an
+    even head count and N >= KERNEL_MIN_TOKENS; "fixedmax" takes kernel 3
+    for head_dim <= 64 and N >= KERNEL_MIN_TOKENS; otherwise (and for
+    "auto" and "flash") :func:`_use_sdpa` decides between PyTorch's fused
+    attention and eager softmax."""
+
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.cfg = cfg
@@ -130,10 +142,19 @@ class Attention(nn.Module):
             )
             return _linear(out, self.proj, c.dtype)
         q, k, v = qkv.reshape(B, N, 3, c.num_heads, head_dim).permute(2, 0, 3, 1, 4)
-        attn = (q * head_dim**-0.5) @ k.transpose(-1, -2)
-        attn = torch.softmax(attn.float(), dim=-1).to(c.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(B, N, D)
-        return _linear(out, self.proj, c.dtype)
+        if (
+            c.attn_impl == "fixedmax"
+            and head_dim <= attention_kernel.MAX_HEAD_DIM
+            and N >= KERNEL_MIN_TOKENS
+        ):
+            out = attention_kernel.fixed_max_attention(q, k, v, head_dim**-0.5)
+        elif _use_sdpa(c.attn_impl, N, x.device):
+            out = F.scaled_dot_product_attention(q, k, v, scale=head_dim**-0.5)
+        else:
+            attn = (q * head_dim**-0.5) @ k.transpose(-1, -2)
+            attn = torch.softmax(attn.float(), dim=-1).to(c.dtype)
+            out = attn @ v
+        return _linear(out.transpose(1, 2).reshape(B, N, D), self.proj, c.dtype)
 
 
 class Mlp(nn.Module):
@@ -295,7 +316,7 @@ def patch_grid_size(h: int, w: int, patch: int = PATCH_SIZE) -> tuple[int, int]:
 def make_backbone(
     name: str = "vitb14",
     dtype: torch.dtype = torch.bfloat16,
-    attn_impl: str = "fixedmax_fused",
+    attn_impl: str = "auto",
     quantize: str = "none",
     generator: Optional[torch.Generator] = None,
 ) -> tuple[DinoV2, ViTConfig]:

@@ -5,8 +5,9 @@ semantics: L2-normalized descriptors, cosine similarity, angular distance
 ``acos(sim)``; a match is kept iff ``acos(best) <= max_distance``,
 ``acos(best) <= max_ratio * acos(second)`` and, with ``cross_check``, it is
 a mutual nearest neighbour.  ``match_pairs_batched`` is the straightforward
-matmul + top-2 reference; the pipeline matches with the kernel
-(``kernels/match.py``), which computes the same function in one pass.
+matmul + top-2 reference; the pipeline matches with the kernels
+(``kernels/match.py``), which compute the same function without the (N, M)
+similarity in memory.  ``prepare_int8_descriptors`` feeds the int8 matcher.
 """
 
 from __future__ import annotations
@@ -45,6 +46,41 @@ def match_pairs_batched(
         top2[..., 0], top2[..., 1], best_idx, col_row, valid1,
         max_ratio, max_distance, cross_check,
     )
+
+
+def prepare_int8_descriptors(desc_u8: torch.Tensor, valid: torch.Tensor, encoding: str):
+    """uint8 descriptors -> exact int8-matmul matching operands for
+    :func:`match_kernel.match_pairs_int8`.
+
+    Decoded descriptors are an affine map of q: ``u = q`` (unsigned) or
+    ``u = 2q - 255`` (the signed ViT encoding, scaled by 2 to stay integral;
+    cosine is scale-invariant).  With ``a = q - 128`` (int8):
+
+        u1 . u2 = alpha * (a1 . a2) + beta * (sum(a1) + sum(a2)) + gamma
+
+    where (alpha, beta, gamma) = (1, 128, 128^2 D) for unsigned and
+    (4, 2, D) for signed.
+
+    Returns (a int8 (..., N, D), sums f32 (..., N), inv_norms f32 (..., N)
+    with 0 marking invalid rows, coef f32 (3,)).  The squared norms are sums
+    of integer squares below 2^24, exact in f32 in any order, and
+    ``vector_norm`` rounds their square root correctly (``torch.sqrt`` on the
+    CPU does not always): every output is bit-equal to the reference's.
+    """
+    q = desc_u8.to(torch.int32)
+    a = (q - 128).to(torch.int8)
+    s = (q - 128).sum(-1).float()
+    D = desc_u8.shape[-1]
+    if encoding == "signed":
+        u = (2 * q - 255).float()
+        coef = [4.0, 2.0, float(D)]
+    else:
+        u = q.float()
+        coef = [1.0, 128.0, 128.0 * 128.0 * D]
+    norms = torch.linalg.vector_norm(u, dim=-1)
+    inv = torch.where(valid & (norms > 1e-6), 1.0 / torch.clamp_min(norms, 1e-6), 0.0)
+    coef = torch.tensor(coef, dtype=torch.float32, device=desc_u8.device)
+    return a, s, inv.float(), coef
 
 
 def get_pair_matcher(use_pallas: bool | None = None):
