@@ -5,18 +5,25 @@
 
 Phases, one flushed line each with elapsed seconds:
 
-1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: the port's CUDA kernels, one nvcc call, from the sources here;
+1. device: the card's name, power limit and maximum SM clock (nvidia-smi)
+   and torch's name;
+2. build: the port's CUDA kernels from the sources here, one nvcc per source,
+   all started together, then one link; the attention kernels' SASS
+   (``cuobjdump -sass`` of the built library) is counted, and the bf16 body
+   must multiply on the tensor cores (HGMMA) and load by TMA (UTMALDG);
 3. kernels: each of the five kernels against its plain PyTorch version on
-   the card, at the paths' shapes, in the working dtypes; known-wrong
-   variants of the attention plain versions against the same bounds (each
-   must fail them), and "last column wins" variants of the matchers' plain
-   versions on inputs with ties (each must differ);
+   the card, at the paths' shapes, in the working dtypes (and kernels 1 and
+   3 also in f32, on their SIMT body); known-wrong variants of the attention
+   plain versions against the same bounds (each must fail them), and "last
+   column wins" variants of the matchers' plain versions on inputs with ties
+   (each must differ);
 4. slice: the port's main path through ``Pipeline.run`` -- frozen DINOv2
    ViT-B/14 (random weights from a seed) on 8 synthetic 1190 x 1596 PNGs,
    4096 keypoints, COLMAP database, exhaustive matching of the 28 pairs in
    one batch, verification and reconstruction skipped -- then checks of the
-   database and of kernels 1 and 2 against the plain path;
+   database and of kernels 1 and 2 against the plain path, and of the
+   saliency keypoints against the CPU's at PyTorch's default precision
+   flags (the script sets none);
 5. paths: the slice's other entry points on the same images and weights:
    (a) ``ViTExtractor(attn_impl="fixedmax")`` extraction into a database
    (kernel 3), (b) ``match_exhaustive`` of that database with
@@ -25,8 +32,10 @@ Phases, one flushed line each with elapsed seconds:
    ``prepare_int8_descriptors`` + ``match_pairs_int8`` on the database's
    uint8 descriptors (kernel 5);
 6. times: CUDA-event medians of each kernel, its plain version and one
-   PyTorch library call computing the same function, and the pipeline's
-   extraction / matching rates on a second, warm run.
+   PyTorch library call computing the same function (kernels 1 and 3 also
+   in f32), the attention bound split into tensor-core, SFU (exp2) and byte
+   times, and the pipeline's extraction / matching rates on a second, warm
+   run.
 
 Every path (the main one and each of 5a-5d) is driven with the kernels'
 launch counts set to 0 just before it and read just after; each kernel must
@@ -73,6 +82,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# exp2 results per SM per clock on the SFU (CUDA's throughput table for
+# compute capability 9.0) and the card's SMs; the SFU time of the attention
+# kernels is stated at the SM clock nvidia-smi reads as the card's maximum.
+SFU_PER_SM_CLOCK = 16
+SMS = 132
 
 # Kernel 1 and its plain version do the same bf16 roundings and differ in
 # f32 sum order and exp2 ulps, so their bf16 outputs differ by at most about
@@ -177,18 +191,25 @@ def random_weights(path: Path, seed: int) -> None:
     torch.save(sd, path)
 
 
-def device_phase():
-    import torch
-
+def nvidia_smi(query: str) -> str:
     smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+
+
+def device_phase():
+    """The card's name and power limit, torch's name for it, and its
+    maximum SM clock in MHz."""
+    import torch
+
+    card = nvidia_smi("name,power.limit")
+    max_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     kind = torch.cuda.get_device_name(0)
-    log(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-        f"| {kind} x{torch.cuda.device_count()}")
-    return card, kind
+    log(f"device: {card} | max SM clock {max_mhz:.0f} MHz | torch {torch.__version__} "
+        f"cuda {torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
+    return card, kind, max_mhz
 
 
 def build_phase():
@@ -198,8 +219,77 @@ def build_phase():
     build.library()
     seconds = time.perf_counter() - t
     sources = sorted(p.name for p in build.CSRC_DIR.glob("*.cu"))
-    log(f"build: {', '.join(sources)} (5 kernels), one nvcc call, {seconds:.1f} s")
+    log(f"build: {', '.join(sources)} (5 kernels), one nvcc per source in "
+        f"parallel and one link, {seconds:.1f} s")
     return seconds
+
+
+# SASS opcodes counted in the attention kernels of the built library.
+SASS_OPS = ("HGMMA", "UTMALDG", "MUFU.EX2", "FFMA", "SYNCS", "BAR")
+
+
+def sass_counts(lines) -> dict:
+    import re
+
+    lines = list(lines)
+    return {op: sum(bool(re.search(rf"\b{re.escape(op)}\b", x)) for x in lines)
+            for op in SASS_OPS}
+
+
+def main_loop(instructions):
+    """The instructions of the innermost loop that holds an HGMMA: the
+    backward branch of smallest span whose range holds one and no EXIT (the
+    out-of-line retries of barrier waits branch back across the exits)."""
+    import re
+
+    hgmma = [a for a, x in instructions if "HGMMA" in x]
+    exits = [a for a, x in instructions if re.search(r"\bEXIT\b", x)]
+    loops = []
+    for addr, text in instructions:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    loops = [(lo, hi) for lo, hi in loops if any(lo <= a <= hi for a in hgmma)
+             and not any(lo <= a <= hi for a in exits)]
+    check(bool(loops), "bf16 attention body: no loop holds an HGMMA")
+    lo, hi = min(loops, key=lambda r: r[1] - r[0])
+    return lo, hi, [x for a, x in instructions if lo <= a <= hi]
+
+
+def sass_phase():
+    """Opcode counts of the two attention bodies in the built library
+    (``cuobjdump -sass``), and of the bf16 body's main loop.  The bf16 body
+    must multiply on the tensor cores (HGMMA, in its main loop) and receive
+    its tiles by TMA (UTMALDG)."""
+    import re
+
+    from vit_colmap_tpu_torch.kernels import build
+
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.BUILD_DIR / build.LIBRARY_NAME)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    bodies, body = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            body = next((b for b in ("hopper", "simt") if f"{b}16attention_kernel" in name),
+                        None)
+            if body:
+                bodies[body] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*)", line)
+        if body and m:
+            bodies[body].append((int(m.group(1), 16), m.group(2)))
+    check(set(bodies) == {"hopper", "simt"}, f"attention bodies in the SASS: {sorted(bodies)}")
+    counts = {b: sass_counts(x for _, x in ins) for b, ins in bodies.items()}
+    lo, hi, loop = main_loop(bodies["hopper"])
+    counts["hopper_main_loop"] = sass_counts(loop)
+    check(counts["hopper_main_loop"]["HGMMA"] > 0 and counts["hopper"]["UTMALDG"] > 0,
+          f"bf16 attention body without HGMMA in its main loop or UTMALDG: {counts}")
+    log(f"sass: attention opcode counts (cuobjdump -sass): bf16 body {counts['hopper']}, "
+        f"its main loop ({hex(lo)}-{hex(hi)}, {len(loop)} instructions) "
+        f"{counts['hopper_main_loop']}; f32 body {counts['simt']}")
+    return counts
 
 
 def wrong_no_log2e(qkv, num_heads: int, sm_scale: float):
@@ -259,28 +349,32 @@ def wrong_kernels(batch: int):
     return wrong
 
 
-def attention_check(B: int, N: int, H: int, seed: int):
+def attention_check(B: int, N: int, H: int, seed: int, dtype: str = "bfloat16"):
+    """Kernel 1 on packed ``dtype`` qkv against its plain version, and its
+    known-wrong variants against the same bound."""
     import torch
 
     from vit_colmap_tpu_torch.kernels import attention
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    qkv = torch.randn(B, N, 3 * 64 * H, generator=g, device=DEVICE).to(torch.bfloat16)
+    qkv = torch.randn(B, N, 3 * 64 * H, generator=g, device=DEVICE)
+    qkv = qkv.to(getattr(torch, dtype))
     out = attention.attention_qkv(qkv, H, 64**-0.5)
     sync()
     ref = attention.attention_qkv_plain(qkv, H, 64**-0.5).float()
     bound = ATTN_ULPS * 2.0**-8 * ref.abs().max().item()
     err = (out.float() - ref).abs().max().item()
+    label = f"{dtype} B={B} N={N}"
     check(math.isfinite(err) and err <= bound,
-          f"attention_qkv (B={B}, N={N}, H={H}): max err {err} > {bound}")
-    log(f"kernels: attention_qkv B={B} N={N} heads={H}: max |kernel - plain| "
+          f"attention_qkv ({label}, H={H}): max err {err} > {bound}")
+    log(f"kernels: attention_qkv {label} heads={H}: max |kernel - plain| "
         f"{err:.3g} <= {bound:.3g} ({ATTN_ULPS} x 2^-8 x max |plain|)")
     for name, fn in wrong_kernels(B).items():
         wrong = (fn(qkv, H, 64**-0.5).float() - ref).abs().max().item()
-        log(f"kernels: known-wrong '{name}' B={B} N={N}: max |wrong - plain| "
+        log(f"kernels: known-wrong '{name}' {label}: max |wrong - plain| "
             f"{wrong:.3g} (must exceed {bound:.3g})")
         if not wrong > bound:
-            POWERLESS.append(f"attention B={B} N={N} '{name}': {wrong} <= {bound}")
+            POWERLESS.append(f"attention {label} '{name}': {wrong} <= {bound}")
     return err
 
 
@@ -305,22 +399,23 @@ WRONG_HEAD_MAJOR = {"no log2e": wrong_heads_no_log2e,
                     "last kv tile dropped": heads_tail_dropped}
 
 
-def head_major_check(B: int, H: int, N: int, d: int, seed: int):
-    """Kernel 3 on head-major bf16 q, k, v against its plain version, and
-    its known-wrong variants against the same bound."""
+def head_major_check(B: int, H: int, N: int, d: int, seed: int,
+                     dtype: str = "bfloat16"):
+    """Kernel 3 on head-major ``dtype`` q, k, v against its plain version,
+    and its known-wrong variants against the same bound."""
     import torch
 
     from vit_colmap_tpu_torch.kernels import attention
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    q, k, v = (torch.randn(B, H, N, d, generator=g, device=DEVICE).to(torch.bfloat16)
-               for _ in range(3))
+    q, k, v = (torch.randn(B, H, N, d, generator=g, device=DEVICE)
+               .to(getattr(torch, dtype)) for _ in range(3))
     out = attention.fixed_max_attention(q, k, v, d**-0.5)
     sync()
     ref = attention.fixed_max_attention_plain(q, k, v, d**-0.5).float()
     bound = ATTN_ULPS * 2.0**-8 * ref.abs().max().item()
     err = (out.float() - ref).abs().max().item()
-    label = f"(B={B}, H={H}, N={N}, d={d})"
+    label = f"{dtype} (B={B}, H={H}, N={N}, d={d})"
     check(math.isfinite(err) and err <= bound,
           f"fixed_max_attention {label}: max err {err} > {bound}")
     log(f"kernels: fixed_max_attention {label}: max |kernel - plain| {err:.3g} "
@@ -576,6 +671,86 @@ def check_tokens(extractor, img_dir: Path, kernel: str, plain, wrong: dict,
             POWERLESS.append(f"patch tokens {kernel} '{name}': rms {w_rms}, max {w_rel}")
 
 
+def saliency_check(extractor, img_dir: Path):
+    """Keypoints of one image batch's feature maps from the card's saliency
+    and detection, with PyTorch's precision flags at their defaults, against
+    the CPU's on the same maps: identical sets.  Then the same with the
+    blurs' convolutions in TF32 (cuDNN's default, which the port overrides):
+    how many keypoints that moves is logged."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from vit_colmap_tpu_torch.ops import detect, scoring
+    from vit_colmap_tpu_torch.utils.image_io import imread_rgb
+
+    check(torch.backends.cudnn.allow_tf32,
+          "saliency check: cuDNN's TF32 flag is not at PyTorch's default")
+    imgs = np.stack([imread_rgb(f) for f in sorted(img_dir.iterdir())[:IMAGE_BATCH]])
+    with torch.no_grad():
+        fmap = extractor.dense_features(imgs).float()
+
+    def keypoints(f):
+        scores = scoring.compute_saliency(f, extractor.saliency)
+        xy, _, valid = detect.detect_keypoints(
+            scores, nms_radius=extractor.nms_radius, bin_size=extractor.bin_size,
+            k_per_bin=extractor.k_per_bin, k_total=MAX_KEYPOINTS,
+            nms_mode=extractor.nms_mode)
+        return [set(map(tuple, xy[b][valid[b]].int().tolist()))
+                for b in range(xy.shape[0])]
+
+    @contextlib.contextmanager
+    def tf32_convolutions():
+        previous = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = previous
+
+    def score_err(f):
+        return (scoring.compute_saliency(f, extractor.saliency).cpu() - cpu_scores).abs().max().item()
+
+    cpu = keypoints(fmap.cpu())
+    cpu_scores = scoring.compute_saliency(fmap.cpu(), extractor.saliency)
+    card = keypoints(fmap)
+    moved = sum(len(c - r) for c, r in zip(card, cpu))
+    err = score_err(fmap)
+    with mock.patch.object(scoring, "exact_f32_convolutions", tf32_convolutions):
+        tf32 = keypoints(fmap)
+        tf32_err = score_err(fmap)
+    tf32_moved = sum(len(c - r) for c, r in zip(tf32, cpu))
+    total = sum(len(r) for r in cpu)
+    check(moved == 0, f"saliency keypoints: {moved} of {total} differ from the CPU's")
+    log(f"slice: saliency keypoints of {IMAGE_BATCH} images on the card at default "
+        f"flags: {moved} of {total} differ from the CPU's (scores within {err:.3g}); "
+        f"with TF32 blurs {tf32_moved} differ (scores within {tf32_err:.3g})")
+
+    # The f32 patch embedding's convolution (ViTExtractor(dtype=f32)) on the
+    # same images, in the port's exact f32 and in TF32, against the CPU's.
+    from vit_colmap_tpu_torch.device import exact_f32_convolutions
+    from vit_colmap_tpu_torch.features.vit_extractor import preprocess
+
+    pe = extractor.model.patch_embed.proj
+    x = preprocess(torch.as_tensor(imgs).to(DEVICE)).permute(0, 3, 1, 2).float()
+    w, b = pe.weight.float(), pe.bias.float()
+    ref = torch.nn.functional.conv2d(x.cpu(), w.cpu(), b.cpu(), stride=14)
+    scale = ref.abs().max().item()
+    with exact_f32_convolutions():
+        exact = torch.nn.functional.conv2d(x, w, b, stride=14).cpu()
+    with tf32_convolutions():
+        loose = torch.nn.functional.conv2d(x, w, b, stride=14).cpu()
+    embed = {"exact": (exact - ref).abs().max().item() / scale,
+             "tf32": (loose - ref).abs().max().item() / scale}
+    log(f"slice: f32 patch-embed convolution vs the CPU's, max |diff| / max |ref|: "
+        f"{embed['exact']:.3g} exact f32, {embed['tf32']:.3g} in TF32")
+    return {"keypoints": total, "differ": moved, "differ_tf32": tf32_moved,
+            "score_err": err, "score_err_tf32": tf32_err,
+            "patch_embed_rel_err": embed["exact"], "patch_embed_rel_err_tf32": embed["tf32"]}
+
+
 def db_pairs(db_path: Path):
     """The database's uint8 descriptors padded to one power-of-two width
     >= 128 with validity masks, as the matching driver pads them, and every
@@ -728,7 +903,7 @@ def matcher_paths(work: Path, extractor):
 
 
 def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
-                fixedmax_extractor, int8_ops):
+                fixedmax_extractor, int8_ops, max_mhz: float):
     import torch
     import torch.nn.functional as F
 
@@ -760,6 +935,26 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
             lambda: attention.fixed_max_attention_plain(qh, kh, vh, 64**-0.5), 3),
         **attn_cost,
     }
+    # The same shapes in f32 (the SIMT body), and the bf16 bound split: the
+    # tensor-core time, the SFU time of the B * H * N^2 exp2 at the card's
+    # maximum SM clock, and the bytes.
+    qkv32, q32, k32, v32 = (t.float() for t in (qkv, qh, kh, vh))
+    f32_ms = {
+        "attention_qkv": cuda_ms(lambda: attention.attention_qkv(qkv32, HEADS, 64**-0.5), 3),
+        "fixed_max_attention": cuda_ms(
+            lambda: attention.fixed_max_attention(q32, k32, v32, 64**-0.5), 3),
+    }
+    split = {
+        "mma_ms": attn_cost["flops"] / PEAK_BF16_FLOPS * 1e3,
+        "sfu_ms": B * HEADS * N * N / (SFU_PER_SM_CLOCK * SMS * max_mhz * 1e6) * 1e3,
+        "bytes_ms": attn_cost["bytes"] / PEAK_BYTES * 1e3,
+        "max_sm_mhz": max_mhz,
+    }
+    log(f"times: attention bound split at ({B}, {N}, {HEADS} heads, 64) bf16: "
+        f"tensor cores {split['mma_ms']:.3f} ms, SFU exp2 {split['sfu_ms']:.3f} ms "
+        f"at {max_mhz:.0f} MHz, bytes {split['bytes_ms']:.4f} ms; f32 (SIMT body) "
+        f"kernel 1 {f32_ms['attention_qkv']:.3f} ms, kernel 3 "
+        f"{f32_ms['fixed_max_attention']:.3f} ms")
     # Kernels 2 and 4 at the main path's shape: the 28 pairs of the slice's
     # database descriptors (P, 4096, 128).
     d1, d2, v1, v2 = match_inputs_main
@@ -842,7 +1037,7 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
         "fixedmax_extract_s": fixedmax_s,
     }
     log(f"times: warm Pipeline.run and fixedmax extraction: {rates}")
-    return out, rates
+    return out, rates, split, f32_ms
 
 
 def main() -> int:
@@ -861,20 +1056,23 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # No precision flag is set: the port's numerics must not depend on them.
 
     from vit_colmap_tpu_torch.kernels import attention
 
-    card, kind = device_phase()
+    card, kind, max_mhz = device_phase()
     build_s = build_phase()
+    sass = sass_phase()
 
     errs = {
         "attention_qkv": max(attention_check(1, 1031, 2, seed=1),
-                             attention_check(IMAGE_BATCH, TOKENS, HEADS, seed=2)),
+                             attention_check(IMAGE_BATCH, TOKENS, HEADS, seed=2),
+                             attention_check(1, 1031, 2, seed=1, dtype="float32")),
         "fixed_max_attention": max(head_major_check(1, 2, 1031, 40, seed=9),
                                    head_major_check(IMAGE_BATCH, HEADS, TOKENS, 64,
-                                                    seed=10)),
+                                                    seed=10),
+                                   head_major_check(1, 2, 1031, 40, seed=9,
+                                                    dtype="float32")),
         "match_topk2_colmax": max(
             match_check(match_inputs(PAIR_BATCH, MAX_KEYPOINTS, MAX_KEYPOINTS, seed=3),
                         "random 28x4096x4096"),
@@ -891,11 +1089,13 @@ def main() -> int:
         extractor = next(iter(pipeline._extractors.values()))
         check_tokens(extractor, work / "images", "attention_qkv",
                      attention.attention_qkv_plain, wrong_kernels(IMAGE_BATCH), "slice")
+        saliency = saliency_check(extractor, work / "images")
         inputs_main, _ = check_matches(work / "run1.db", plain_fused, "slice")
         fixedmax_extractor, fixedmax_launches = fixedmax_path(work)
         path_launches, _, int8_ops, int8_vs_float = matcher_paths(work, fixedmax_extractor)
-        times, rates = times_phase(pipeline, work, work / "images", inputs_main,
-                                   fixedmax_extractor, int8_ops)
+        times, rates, split, f32_ms = times_phase(
+            pipeline, work, work / "images", inputs_main, fixedmax_extractor, int8_ops,
+            max_mhz)
     check(not POWERLESS, "known-wrong kernels passed a check: " + "; ".join(POWERLESS))
 
     # name -> (source, TPU kernel it replaces, launches on its own path)
@@ -933,7 +1133,9 @@ def main() -> int:
             "library_ms": t["library_ms"],
         })
     log(f"done: build {build_s:.1f} s, database {db_counts}, rates {rates}, "
-        f"int8 rows differing from the float matcher {int8_vs_float}")
+        f"int8 rows differing from the float matcher {int8_vs_float}, saliency "
+        f"{saliency}, attention bound split {split}, f32 attention ms {f32_ms}, "
+        f"attention SASS {sass}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -150,3 +150,70 @@ def test_head_major_takes_strided_views():
     assert merged.data_ptr() == out.data_ptr()
     torch.testing.assert_close(merged, attention.attention_qkv(qkv, 2, 0.125),
                                rtol=0, atol=0)
+
+
+# The bf16 body's tensor maps: what fixed_max_attention_launch encodes from
+# the element strides it is given (tma_layout), and which views are copied
+# first (tma_operand).
+
+def _qkv_bf16(B=2, N=300, heads=12):
+    return torch.zeros(B, N, 3 * 64 * heads, dtype=torch.bfloat16)
+
+
+def test_tma_maps_of_packed_qkv():
+    """Kernel 1 reads q, k and v in place from the packed (B, N, 3D) array:
+    one 4-D map each, with its own base, a token stride of 3D * 2 bytes and
+    tokens on their own axis."""
+    B, N, H = 2, 300, 12
+    qkv = _qkv_bf16(B, N, H)
+    views = attention._split_heads(qkv, H)
+    row = 3 * 64 * H * 2
+    for i, t in enumerate(views):
+        assert attention.tma_ready(t) and attention.tma_operand(t) is t
+        assert t.data_ptr() - qkv.data_ptr() == i * 64 * H * 2
+        assert attention.tma_layout(t) == {
+            "dims": (64, N, H, B), "strides": (row, 128, N * row),
+            "box": (64, 128, 1, 1)}
+
+
+@pytest.mark.parametrize("d", [64, 40])
+def test_tma_maps_of_permuted_head_views(d):
+    """Kernel 3 on the backbone's permuted views of its qkv projection, for
+    d = 64 and the ragged d = 40 (the box runs past d: zero fill)."""
+    B, N, H = 2, 1031, 2
+    qkv = torch.zeros(B, N, 3 * H * d, dtype=torch.bfloat16)
+    q, k, v = qkv.reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+    row = 3 * H * d * 2
+    for t in (q, k, v):
+        assert attention.tma_operand(t) is t
+        assert attention.tma_layout(t) == {
+            "dims": (d, N, H, B), "strides": (row, d * 2, N * row),
+            "box": (64, 128, 1, 1)}
+
+
+@pytest.mark.parametrize("d,view", [(36, "contiguous"), (40, "odd token stride"),
+                                    (64, "unaligned base")])
+def test_tma_operand_copies_what_tma_cannot_read(d, view):
+    """d % 8 != 0, a token stride that is not a multiple of 16 bytes, or an
+    unaligned base: copied into zero-padded (B, H, N, ceil(d / 8) * 8)
+    storage with the same values."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((1, 2, 50, 72)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    if view == "contiguous":
+        t = x[..., :d].contiguous()
+    elif view == "odd token stride":  # 108 elements: 216 bytes
+        t = torch.as_strided(x, (1, 2, 30, d), (7200, 3600, 108, 1))
+    else:  # 3 elements past an aligned allocation
+        t = x.flatten()[3:3 + 2 * 50 * 64].reshape(1, 2, 50, 64)
+    assert not attention.tma_ready(t)
+    padded = attention.tma_operand(t)
+    d8 = -(-d // 8) * 8
+    assert padded.shape == (*t.shape[:3], d8) and padded.is_contiguous()
+    assert attention.tma_ready(padded)
+    assert torch.equal(padded[..., :d], t)
+    assert not padded[..., d:].any()
+    B, H, N, _ = t.shape
+    assert attention.tma_layout(padded) == {
+        "dims": (d8, N, H, B), "strides": (d8 * 2, N * d8 * 2, H * N * d8 * 2),
+        "box": (64, 128, 1, 1)}

@@ -145,6 +145,26 @@ def test_unported_attention_raises(impl):
         tdino.make_backbone("vits14", attn_impl=impl + "_v2")
 
 
+@pytest.mark.parametrize("global_tf32", [True, False])
+def test_f32_patch_embed_convolves_without_tf32(monkeypatch, global_tf32):
+    """The f32 patch embedding runs with cuDNN's TF32 off whatever the
+    global flag says, and the global flag is left as it was."""
+    seen = []
+    conv2d = tdino.F.conv2d
+
+    def recording_conv2d(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", global_tf32)
+    monkeypatch.setattr(tdino.F, "conv2d", recording_conv2d)
+    model = tdino.DinoV2(tdino.ViTConfig(**TINY, dtype=torch.float32, attn_impl="xla"))
+    with torch.no_grad():
+        model(torch.zeros(1, 28, 28, 3))
+    assert seen == [False]
+    assert torch.backends.cudnn.allow_tf32 is global_tf32
+
+
 def test_vitg14_raises():
     with pytest.raises(NotImplementedError):
         tdino.make_backbone("vitg14")

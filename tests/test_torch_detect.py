@@ -29,6 +29,24 @@ def test_gaussian_blur(sigma):
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("global_tf32", [True, False])
+def test_gaussian_blur_convolves_without_tf32(monkeypatch, global_tf32):
+    """Each f32 convolution of the blur runs with cuDNN's TF32 off, whatever
+    the global flag says, and the global flag is left as it was."""
+    seen = []
+    conv2d = scoring.F.conv2d
+
+    def recording_conv2d(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", global_tf32)
+    monkeypatch.setattr(scoring.F, "conv2d", recording_conv2d)
+    scoring.gaussian_blur(torch.from_numpy(_fmap()[..., 0]), 1.6)
+    assert seen == [False, False]
+    assert torch.backends.cudnn.allow_tf32 is global_tf32
+
+
 @pytest.mark.parametrize("method", ["harris", "dog", "combined"])
 def test_saliency(method):
     f = _fmap(1)

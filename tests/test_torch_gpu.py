@@ -13,38 +13,45 @@ import pytest
 import torch
 
 from vit_colmap_tpu_torch.kernels import attention, launches, match
+from vit_colmap_tpu_torch.ops import detect, scoring
 from vit_colmap_tpu_torch.ops.matching import prepare_int8_descriptors
 
 
 @pytest.fixture
 def cuda_device():
+    """The card, with PyTorch's precision flags left at their defaults."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU; run with `pytest -m gpu` on the GPU machine")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,n,heads", [(1, 1031, 2), (2, 9691, 12)])
-def test_attention_kernel_matches_plain(cuda_device, b, n, heads):
+def test_attention_kernel_matches_plain(cuda_device, b, n, heads, dtype):
+    """bf16 runs the Hopper body, f32 the SIMT body."""
     g = torch.Generator(device=cuda_device).manual_seed(n)
     qkv = torch.randn(b, n, 3 * 64 * heads, generator=g, device=cuda_device)
-    qkv = qkv.to(torch.bfloat16)
+    qkv = qkv.to(dtype)
     before = launches["attention_qkv"]
     out = attention.attention_qkv(qkv, heads, 64**-0.5)
     torch.cuda.synchronize()
     assert launches["attention_qkv"] == before + 1
+    assert out.dtype == dtype
     ref = attention.attention_qkv_plain(qkv, heads, 64**-0.5).float()
-    # Same bf16 roundings, different f32 sum order: at most about one bf16
-    # ulp apart; bound at 4 x 2^-8 of the largest output.
+    # Same roundings (q' to the input dtype, p to bf16), different f32 sum
+    # order: at most about one bf16 ulp apart; bound at 4 x 2^-8 of the
+    # largest output.
     bound = 4 * 2.0**-8 * ref.abs().max().item()
     assert (out.float() - ref).abs().max().item() <= bound
 
 
 @pytest.mark.gpu
-def test_attention_kernel_rejects_f32(cuda_device):
+def test_attention_kernel_rejects_f16(cuda_device):
+    """No fallback: a CUDA dtype the kernel does not take raises."""
     with pytest.raises(ValueError):
-        attention.attention_qkv(torch.zeros(1, 64, 384, device=cuda_device), 2, 0.125)
+        attention.attention_qkv(
+            torch.zeros(1, 64, 384, dtype=torch.float16, device=cuda_device), 2, 0.125)
 
 
 def _match_case(kind, device, P=3, N=1000, M=1024):
@@ -89,17 +96,38 @@ def test_match_kernel_rejects_other_widths(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,heads,n,d", [(2, 12, 9691, 64), (1, 2, 1031, 40)])
-def test_head_major_attention_kernel_matches_plain(cuda_device, b, heads, n, d):
+@pytest.mark.parametrize("dim,use_pallas", [(256, None), (128, False)])
+def test_pair_matcher_takes_matmul_matcher(cuda_device, dim, use_pallas):
+    """A width the kernels are not built for, or use_pallas=False, goes to
+    the matmul matcher on the card, as in the reference; no kernel runs."""
+    from vit_colmap_tpu_torch.ops.matching import get_pair_matcher, match_pairs_batched
+
+    d1, d2, v1, v2 = _match_case("random", cuda_device, P=2, N=256, M=384)
+    if dim != 128:
+        d1, d2 = (torch.cat([d, d.flip(-1)], dim=-1) / 2**0.5 for d in (d1, d2))
+    before = sum(launches.values())
+    out = get_pair_matcher(use_pallas)(d1, d2, v1, v2)
+    torch.cuda.synchronize()
+    assert sum(launches.values()) == before
+    assert torch.equal(out, match_pairs_batched(d1, d2, v1, v2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,heads,n,d", [(2, 12, 9691, 64), (1, 2, 1031, 40),
+                                         (1, 2, 300, 36)])
+def test_head_major_attention_kernel_matches_plain(cuda_device, b, heads, n, d, dtype):
+    """d = 36 takes the bf16 body through a zero-padded copy of q, k, v."""
     g = torch.Generator(device=cuda_device).manual_seed(n + d)
     q, k, v = (torch.randn(b, heads, n, d, generator=g, device=cuda_device)
-               .to(torch.bfloat16) for _ in range(3))
+               .to(dtype) for _ in range(3))
     before = launches["fixed_max_attention"]
     out = attention.fixed_max_attention(q, k, v, d**-0.5)
     torch.cuda.synchronize()
     assert launches["fixed_max_attention"] == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
     ref = attention.fixed_max_attention_plain(q, k, v, d**-0.5).float()
-    # Kernel 1's bound: the same bf16 roundings in another f32 sum order.
+    # Kernel 1's bound: the same roundings in another f32 sum order.
     bound = 4 * 2.0**-8 * ref.abs().max().item()
     assert (out.float() - ref).abs().max().item() <= bound
 
@@ -193,3 +221,23 @@ def test_flash_and_auto_take_fused_attention(cuda_device, impl, monkeypatch):
         out, ref = attn(x).float(), eager(x).float()
     assert calls == [1]
     assert (out - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+
+
+def _keypoint_sets(fmap):
+    scores = scoring.compute_saliency(fmap, "combined")
+    xy, _, valid = detect.detect_keypoints(scores, k_total=4096, nms_mode="soft")
+    return [set(map(tuple, xy[b][valid[b]].int().tolist())) for b in range(xy.shape[0])]
+
+
+@pytest.mark.gpu
+def test_saliency_keypoints_match_cpu_at_default_flags(cuda_device):
+    """Saliency and detection on the card, with cuDNN's TF32 flag at its
+    default, pick the CPU's keypoints: the blurs run in f32 on their own."""
+    assert torch.backends.cudnn.allow_tf32  # PyTorch's default
+    g = torch.Generator().manual_seed(13)
+    fmap = torch.randn(2, 85, 114, 64, generator=g)
+    cpu = _keypoint_sets(fmap)
+    gpu = _keypoint_sets(fmap.to(cuda_device))
+    assert torch.backends.cudnn.allow_tf32
+    assert [len(k) for k in gpu] == [len(k) for k in cpu]
+    assert gpu == cpu

@@ -105,9 +105,20 @@ def test_pair_matcher_other_width_matches_jax(kind):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
-def test_matmul_matcher_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        matching.get_pair_matcher(use_pallas=False)
+@pytest.mark.parametrize("cross_check", [True, False])
+@pytest.mark.parametrize("kind", CASES)
+def test_matmul_matcher_matches_jax(kind, cross_check):
+    """use_pallas=False: the matmul matcher, as the reference's, on the same
+    descriptors gives the JAX ``match_pairs_batched`` matches."""
+    d1, d2, v1, v2 = _case(kind)
+    if kind == "ties":  # scaled by a power of two: dot products stay exact
+        d1, d2 = (d / 16.0 for d in (d1, d2))
+    ref = np.asarray(jmatching.match_pairs_batched(
+        *map(jnp.asarray, (d1, d2, v1, v2)), cross_check=cross_check))
+    matcher = matching.get_pair_matcher(use_pallas=False)
+    assert matcher is matching.match_pairs_batched
+    out = matcher(*map(torch.from_numpy, (d1, d2, v1, v2)), cross_check=cross_check)
+    np.testing.assert_array_equal(out.numpy(), ref)
 
 
 def test_ragged_shapes_take_plain_rule():

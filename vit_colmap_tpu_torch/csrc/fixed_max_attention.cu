@@ -1,82 +1,105 @@
 // Fixed-max softmax attention on strided (batch, head, token, dim) views.
 //
 // Replaces two TPU kernels of vit_colmap_tpu/ops/pallas/attention_kernel.py
-// with one body:
+// with one launcher:
 //   * fixed_max_attention_qkv (body _kernel_pair): q, k and v are read in
 //     place from the packed (B, N, 3*D) qkv projection and the result lands
 //     in (B, N, D), by passing the matching strides;
 //   * fixed_max_attention (body _kernel): head-major (B, H, N, d <= 64)
-//     views.  The TPU version zero-pads d < 64 to 64 in HBM; here the q/k/v
-//     tiles are zero-filled past d in shared memory and the q.k loop stops at
-//     d rounded up to 8, so no padded copy exists.
+//     views.  The TPU version zero-pads d < 64 to 64 in HBM; here the tiles
+//     are zero-filled past d on their way into shared memory.
 // Same function, not the same blocking: the TPU versions use 128-lane
 // blocks and fold the softmax denominator into the PV product through a
-// [V | 1 | 0] column; here one block owns one (image, head, 64-row q tile)
-// and keeps the denominator as a plain running sum.
+// [V | 1 | 0] column.  The bf16 body below also takes the denominator from
+// the tensor cores, as a product of P with a ones column; the f32 body keeps
+// it as a running sum.
 //
 // Numerics (held to the reference):
-//   q' = bf16(q * sm_scale * log2(e))   scaled in f32, rounded to bf16
+//   q' = round(q * sm_scale * log2(e))  scaled in f32, rounded to the input
+//                                       type (bf16, or f32 for f32 inputs)
 //   s  = q' . k                         f32 accumulation
 //   p  = bf16(exp2(min(s, 100)))        no running max; frozen-model logits
 //                                       are bounded, the clamp guards overflow
-//   out = (sum_kv p v) / max(sum_kv p, 1e-30)   f32 sums, kv rows >= N excluded
+//   out = (sum_kv p v) / max(sum_kv p, 1e-30)   f32 sums of the rounded p,
+//                                       kv rows >= N excluded
+// The bf16 body's exp2 flushes results below 2^-126 to zero (as a TPU
+// does), which the f32 body's exp2f keeps as denormals.
 //
-// What bounds it on an H100: the work is 4 * N^2 * d FLOP per (image, head),
-// which at N = 9,691, d = 64 is ~24 GFLOP per head against ~4 MB of q/k/v,
-// so the bound is arithmetic, not bytes.  This first version runs on the
-// FP32 SIMT pipes (67 TFLOP/s peak), not the bf16 tensor cores (989
-// TFLOP/s): each thread holds a 4x4 register tile of S and of O, operands
-// come from shared memory as float4 so each 16 FMAs cost two shared loads,
-// and the q tile stays resident while k/v tiles stream.  Tensor cores
-// (mma.sync / wgmma) and TMA staging are the next step.
+// What bounds it on an H100: 4 * N^2 * d FLOP and N^2 exp2 per (image,
+// head) against ~4 MB of q/k/v, so the bound is arithmetic.  At N = 9,691,
+// d = 64, 24 (image, head) pairs: 0.583 ms of bf16 tensor-core work and
+// 2.25e9 exp2, which the SFU (16 per SM per clock) needs ~0.54 ms for at
+// 1.98 GHz.  The two are the same size, so they have to overlap.
 //
-// Layout: q, k, v and out are bf16 with unit stride along the head dim and
-// element strides (batch, head, token) given per tensor.  With `vec` set
-// (d % 8 == 0, 16-byte aligned bases and strides) tiles load as 16-byte
-// vectors, else element by element.
+// bf16 body (hopper::attention_kernel): one block of three warpgroups per
+// (image, head, 128-row q tile), q tiles fastest so one head's k/v stay in
+// L2.  Warpgroup 0 is the producer: one thread fills a ring of k and v tiles
+// (128 rows x 64 dims, 128-byte swizzle) with TMA, tracked by full/empty
+// mbarrier pairs; TMA's out-of-bounds fill zeroes the rows past N (each
+// tensor map has tokens on their own axis, so a tile never reaches into the
+// next image or head) and the dims past d.  Warpgroups 1 and 2 each own 64
+// q rows: they scale and round their q tile in shared memory once, then per
+// k/v tile run S = Q'K^T (wgmma m64n128k16, both operands in shared memory),
+// exp2 and the bf16 rounding in registers, and O += P V (wgmma m64n64k16
+// with P as the register A operand, V transposed from shared memory) with
+// the row sums of P beside it (wgmma m64n8k16 against a ones tile): the SFU
+// is the scarce unit, so nothing but the clamp, the exp2 and the rounding
+// runs per element.  S of tile j is issued together with PV of tile j-1, so
+// one warpgroup's exp2 overlaps its own PV product; two named barriers make
+// the warpgroups take turns issuing, so one's exp2 also overlaps the other's
+// products (ping-pong).  setmaxnreg moves registers from the producer to the
+// consumers.  Only the last kv tile is masked (zero-filled k rows would read
+// s = 0, p = 1).
+//
+// f32 body (simt::attention_kernel): the first port's SIMT kernel, kept for
+// f32 inputs: a 4x4 register tile of S and of O per thread on the FP32
+// pipes, operands from shared memory as float4, 16-byte global loads where
+// the views allow.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kHeadDim = 64;  // largest head dim; smaller ones are masked
-constexpr int kTileQ = 64;
-constexpr int kTileKV = 64;
-constexpr int kThreads = 256;  // 16 x 16 threads, each a 4x4 output tile
+constexpr int kHeadDim = 64;  // largest head dim; smaller ones are zero-filled
 constexpr float kClamp = 100.f;
-constexpr int kSmemFloats = 4 * kTileQ * kHeadDim;  // q, k, v, p tiles
-constexpr int kSmemBytes = kSmemFloats * 4;
-
-struct View {
-  const __nv_bfloat16* base;  // element (batch 0, head 0, token 0, dim 0)
-  long long sb, sh, sn;       // element strides of batch, head and token
-};
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+namespace simt {
+
+constexpr int kTileQ = 64;
+constexpr int kTileKV = 64;
+constexpr int kThreads = 256;  // 16 x 16 threads, each a 4x4 output tile
+constexpr int kSmemBytes = 4 * kTileQ * kHeadDim * 4;  // q, k, v, p tiles
+
+struct View {
+  const float* base;     // element (batch 0, head 0, token 0, dim 0)
+  long long sb, sh, sn;  // element strides of batch, head and token
+};
+
 // Dims c8..c8+7 of one row into x, zero past d.
-__device__ __forceinline__ void load8(const __nv_bfloat16* row, int c8, int d,
-                                      bool vec, float* x) {
+__device__ __forceinline__ void load8(const float* row, int c8, int d, bool vec,
+                                      float* x) {
   if (vec && c8 + 8 <= d) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(row + c8);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) x[j] = __bfloat162float(h[j]);
+    const float4 a = *reinterpret_cast<const float4*>(row + c8);
+    const float4 b = *reinterpret_cast<const float4*>(row + c8 + 4);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
   } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      x[j] = c8 + j < d ? __bfloat162float(row[c8 + j]) : 0.f;
+    for (int j = 0; j < 8; ++j) x[j] = c8 + j < d ? row[c8 + j] : 0.f;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-fixed_max_attention_kernel(View q, View k, View v, __nv_bfloat16* __restrict__ out,
-                           long long ob, long long oh, long long on, int n,
-                           int d, float q_scale, bool vec) {
+attention_kernel(View q, View k, View v, float* __restrict__ out, long long ob,
+                 long long oh, long long on, int n, int d, float q_scale,
+                 bool vec) {
   extern __shared__ float smem[];
   float* qs = smem;                     // [d][q]   q tile, transposed
   float* ks = qs + kHeadDim * kTileQ;   // [d][kv]  k tile, transposed
@@ -89,13 +112,13 @@ fixed_max_attention_kernel(View q, View k, View v, __nv_bfloat16* __restrict__ o
   const int q0 = blockIdx.x * kTileQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const __nv_bfloat16* qb = q.base + b * q.sb + h * q.sh;
-  const __nv_bfloat16* kb = k.base + b * k.sb + h * k.sh;
-  const __nv_bfloat16* vb = v.base + b * v.sb + h * v.sh;
+  const float* qb = q.base + b * q.sb + h * q.sh;
+  const float* kb = k.base + b * k.sb + h * k.sh;
+  const float* vb = v.base + b * v.sb + h * v.sh;
   const int d8 = (d + 7) & ~7;  // the q.k loop runs in steps of 8
 
   // q tile: a warp covers 32 consecutive rows of one 8-column chunk, so the
-  // transposed shared stores are conflict-free.
+  // transposed shared stores are conflict-free.  q' stays f32 (the input type).
   for (int e = tid; e < kTileQ * (kHeadDim / 8); e += kThreads) {
     const int r = e % kTileQ;
     const int c8 = (e / kTileQ) * 8;
@@ -103,7 +126,7 @@ fixed_max_attention_kernel(View q, View k, View v, __nv_bfloat16* __restrict__ o
     if (q0 + r < n) {
       load8(qb + (q0 + r) * q.sn, c8, d, vec, x);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) x[j] = round_bf16(x[j] * q_scale);
+      for (int j = 0; j < 8; ++j) x[j] *= q_scale;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) qs[(c8 + j) * kTileQ + r] = x[j];
@@ -203,23 +226,519 @@ fixed_max_attention_kernel(View q, View k, View v, __nv_bfloat16* __restrict__ o
     for (int off = 8; off > 0; off >>= 1)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
 
-  if (4 * tx >= d) return;  // this thread's output dims are all past d
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= n) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* dst = out + b * ob + h * oh + row * on + 4 * tx;
-    if (vec) {  // d % 8 == 0, so all four dims exist
-      __nv_bfloat162* dst2 = reinterpret_cast<__nv_bfloat162*>(dst);
-      dst2[0] = __floats2bfloat162_rn(o[i][0] / den, o[i][1] / den);
-      dst2[1] = __floats2bfloat162_rn(o[i][2] / den, o[i][3] / den);
-    } else {
+    float* dst = out + b * ob + h * oh + row * on + 4 * tx;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (4 * tx + j < d) dst[j] = __float2bfloat16_rn(o[i][j] / den);
+    for (int j = 0; j < 4; ++j)
+      if (4 * tx + j < d) dst[j] = o[i][j] / den;
+  }
+}
+
+}  // namespace simt
+
+namespace hopper {
+
+constexpr int kBlockM = 128;  // q rows per block: two consumer warpgroups
+constexpr int kBlockN = 128;  // kv rows per ring tile
+constexpr int kStages = 4;    // depth of the k ring and of the v ring
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kTileBytes = kBlockN * kHeadDim * 2;  // 16 KB, also the q tile
+constexpr int kRowBytes = kHeadDim * 2;  // 128: one swizzle row
+constexpr int kBarriers = 1 + 4 * kStages;  // q; k full/empty; v full/empty
+constexpr int kOnesBytes = 512;  // bf16 ones per consumer: the row-sum operand
+constexpr int kSmemBytes = (1 + 2 * kStages) * kTileBytes + 2 * kOnesBytes +
+                           kBarriers * 8 + 1024;  // + alignment
+// Named barriers (0 is __syncthreads): 1 + w lets consumer w issue its
+// products; 3 + w joins consumer w's four warps.
+constexpr int kBarSched = 1;
+constexpr int kBarWarpgroup = 3;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity ``parity`` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One (64 dims x 128 tokens) box of a 4-D (d, N, H, B) tensor map into
+// shared memory; completion is counted in bytes on ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int token, int head,
+                                         int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(token),
+      "r"(head), "r"(batch)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving register reads or writes across a wgmma
+// issue or wait (the tensor cores own these registers in between).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Descriptor of a K-major operand without swizzle whose two 8 x 16-byte core
+// matrices of a k16 slice lie 128 bytes apart: the all-ones row-sum operand
+// (every slice reads the same 256 bytes).
+__device__ __forceinline__ uint64_t ones_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{128 >> 4} << 16) |
+         (uint64_t{256 >> 4} << 32);
+}
+
+// Shared-memory matrix descriptor of a tile stored as 128-byte rows with the
+// 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B): 8-row groups 1024
+// bytes apart (stride byte offset), leading byte offset unused.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+// S (+)= Q' K^T for one k16 slice: m64n128k16, A and B K-major in shared
+// memory (128-byte swizzle), f32 accumulators; ``accumulate`` 0 overwrites.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// O += P V for one k16 slice: m64n64k16 with P as the register A operand
+// (four bf16x2 registers, the layout of S's accumulators) and V from shared
+// memory, MN-major (transposed B, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// Row sums of P for one k16 slice: m64n8k16 with P as the register A operand
+// and an all-ones B, so each of the four f32 accumulators holds the sum of the
+// bf16 p of its row (rows 16 (t / 32) + (t % 32) / 4 + 8 (i / 2)).
+__device__ __forceinline__ void wgmma_rowsum(float (&d)[4], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// 2^x on the SFU; results below 2^-126 flush to zero.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// p = bf16(exp2(min(s, 100))) of one 64 x 128 S tile in the accumulator
+// layout (element i of thread t: row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2)
+// % 2), column 8 (i / 4) + 2 (t % 4) + i % 2), packed in pairs as the A
+// operand of the PV and row-sum products.  With kMask, columns at or past
+// ``valid`` get p = 0.
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(const float (&s)[64], uint32_t (&p)[32],
+                                             int col0, int valid) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    float e0 = exp2_ftz(fminf(s[i], kClamp));
+    float e1 = exp2_ftz(fminf(s[i + 1], kClamp));
+    if (kMask) {
+      const int col = 8 * (i / 4) + col0;
+      e0 = col < valid ? e0 : 0.f;
+      e1 = col + 1 < valid ? e1 : 0.f;
+    }
+    p[i / 2] = pack_bf16(e0, e1);
+  }
+}
+
+struct Out {
+  __nv_bfloat16* base;
+  long long sb, sh, sn;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+attention_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, Out out, int n, int d,
+                 float q_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  uint8_t* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  uint8_t* q_tile = smem;
+  uint8_t* k_ring = q_tile + kTileBytes;
+  uint8_t* v_ring = k_ring + kStages * kTileBytes;
+  uint8_t* ones = v_ring + kStages * kTileBytes;
+  const uint32_t bars = smem_addr(ones + 2 * kOnesBytes);
+  const uint32_t full_q = bars;
+  auto full_k = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty_k = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto full_v = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return bars + 8 * (1 + 3 * kStages + s); };
+
+  const int q0 = blockIdx.x * kBlockM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tiles = (n + kBlockN - 1) / kBlockN;
+  const int warpgroup = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 2);  // one arrival per consumer warpgroup
+      mbar_init(empty_v(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {
+    // Producer: one thread keeps the k and v rings full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, kTileBytes);
+      tma_load(smem_addr(q_tile), &tq, full_q, q0, h, b);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        const uint32_t parity = ((j / kStages) & 1) ^ 1;
+        mbar_wait(empty_k(s), parity);
+        mbar_expect_tx(full_k(s), kTileBytes);
+        tma_load(smem_addr(k_ring + s * kTileBytes), &tk, full_k(s), j * kBlockN, h, b);
+        mbar_wait(empty_v(s), parity);
+        mbar_expect_tx(full_v(s), kTileBytes);
+        tma_load(smem_addr(v_ring + s * kTileBytes), &tv, full_v(s), j * kBlockN, h, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int w = warpgroup - 1;  // consumer 0 or 1: q rows 64w..64w+63
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    // Consumer 1 lets consumer 0 issue first.
+    if (w == 1) bar_arrive(kBarSched + 0, 256);
+
+    // q' = bf16(q * q_scale), in place: elementwise, so the swizzle does not
+    // matter.  Then make the generic-proxy stores visible to wgmma.
+    mbar_wait(full_q, 0);
+    uint8_t* q_half = q_tile + w * 64 * kRowBytes;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint4* chunk = reinterpret_cast<uint4*>(q_half) + t + 128 * c;
+      uint4 raw = *chunk;
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h2[j]);
+        h2[j] = __floats2bfloat162_rn(f.x * q_scale, f.y * q_scale);
+      }
+      *chunk = raw;
+    }
+    uint32_t* my_ones = reinterpret_cast<uint32_t*>(ones + w * kOnesBytes);
+    my_ones[t] = 0x3F803F80u;  // two bf16 ones
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bar_sync(kBarWarpgroup + w, 128);
+
+    const uint64_t q_desc = sw128_desc(smem_addr(q_half));
+    const int col0 = 2 * (lane % 4);  // this thread's first column of S
+    const uint64_t sum_desc = ones_desc(smem_addr(my_ones));
+    float s[64];
+    float o[32];
+    float l[4] = {0.f, 0.f, 0.f, 0.f};  // row sums, from the tensor cores
+    uint32_t p[32];
+    uint32_t p_next[32];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+    // Descriptors are computed, and every wgmma input register is pinned,
+    // before the warpgroup fence: an instruction that defines a wgmma input
+    // inside an issue sequence makes ptxas serialize the products.
+    auto k_desc = [&](int j) {
+      return sw128_desc(smem_addr(k_ring + (j % kStages) * kTileBytes));
+    };
+    auto v_desc = [&](int j) {
+      return sw128_desc(smem_addr(v_ring + (j % kStages) * kTileBytes));
+    };
+    auto issue_qk = [&](uint64_t kd) {
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk)  // 32 bytes per k16 slice
+        wgmma_qk(s, q_desc + 2 * kk, kd + 2 * kk, kk > 0);
+    };
+    auto issue_pv = [&](const uint32_t (&pa)[32], uint64_t vd) {
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {  // 16 rows of 128 bytes per slice
+        wgmma_pv(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                 vd + (16 * kRowBytes >> 4) * kk);
+        wgmma_rowsum(l, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                     sum_desc);
+      }
+    };
+    auto softmax = [&](int j, uint32_t (&dst)[32]) {
+      const int valid = n - j * kBlockN;
+      if (valid < kBlockN)
+        softmax_tile<true>(s, dst, col0, valid);
+      else
+        softmax_tile<false>(s, dst, col0, valid);
+    };
+    auto release = [&](uint32_t bar) {
+      if (t == 0) mbar_arrive(bar);
+    };
+    // Tile j >= 1: S_j and PV_{j-1} (probabilities ``prev``) issued together;
+    // the exp2 of S_j (into ``next``) runs while PV_{j-1} is on the tensor
+    // cores.  Both tiles have arrived before this consumer takes its turn.
+    auto step = [&](int j, uint32_t (&prev)[32], uint32_t (&next)[32]) {
+      const uint64_t kd = k_desc(j);
+      const uint64_t vd = v_desc(j - 1);
+      mbar_wait(full_v((j - 1) % kStages), ((j - 1) / kStages) & 1);
+      mbar_wait(full_k(j % kStages), (j / kStages) & 1);
+      bar_sync(kBarSched + w, 256);
+      fence_regs(s);
+      fence_regs(o);
+      fence_regs(l);
+      fence_regs(prev);
+      wgmma_fence();
+      issue_qk(kd);
+      wgmma_commit();
+      issue_pv(prev, vd);
+      wgmma_commit();
+      bar_arrive(kBarSched + (1 - w), 256);
+      wgmma_wait<1>();
+      fence_regs(s);
+      release(empty_k(j % kStages));
+      softmax(j, next);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(l);
+      fence_regs(prev);
+      release(empty_v((j - 1) % kStages));
+    };
+    // The last PV.  Consumer 1 skips its final arrival, which nobody waits for.
+    auto finish = [&](uint32_t (&last)[32]) {
+      const int j = tiles - 1;
+      const uint64_t vd = v_desc(j);
+      mbar_wait(full_v(j % kStages), (j / kStages) & 1);
+      bar_sync(kBarSched + w, 256);
+      fence_regs(o);
+      fence_regs(l);
+      fence_regs(last);
+      wgmma_fence();
+      issue_pv(last, vd);
+      wgmma_commit();
+      if (w == 0) bar_arrive(kBarSched + 1, 256);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(l);
+      release(empty_v(j % kStages));
+    };
+
+    // Tile 0: S only.
+    const uint64_t kd0 = k_desc(0);
+    mbar_wait(full_k(0), 0);
+    bar_sync(kBarSched + w, 256);
+    fence_regs(s);
+    wgmma_fence();
+    issue_qk(kd0);
+    wgmma_commit();
+    bar_arrive(kBarSched + (1 - w), 256);
+    wgmma_wait<0>();
+    fence_regs(s);
+    release(empty_k(0));
+    softmax(0, p);
+
+    // Two tiles per trip, so the probabilities alternate between p and
+    // p_next without copies.
+    int j = 1;
+#pragma unroll 1
+    for (; j + 1 < tiles; j += 2) {
+      step(j, p, p_next);
+      step(j + 1, p_next, p);
+    }
+    if (j < tiles) {
+      step(j, p, p_next);
+      finish(p_next);
+    } else {
+      finish(p);
+    }
+
+    // out = O / max(l, 1e-30).
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[2 * r] = fmaxf(l[2 * r], 1e-30f);
+    const int row0 = q0 + 64 * w + 16 * (t / 32) + lane / 4;
+    __nv_bfloat16* ob = out.base + b * out.sb + h * out.sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= n) continue;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (8 * c >= d) break;
+        const int i = 4 * c + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(ob + row * out.sn + 8 * c + col0) =
+            __floats2bfloat162_rn(o[i] / l[2 * r], o[i + 1] / l[2 * r]);
+      }
     }
   }
+}
+
+}  // namespace hopper
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The 4-D (d, N, H, B) bf16 tensor map of one view with element strides
+// s = (batch, head, token): box (64, 128, 1, 1), 128-byte swizzle, zero fill
+// out of bounds.  kernels/attention.tma_layout states the same geometry.
+bool make_map(CUtensorMap* map, const void* base, int batch, int heads, int n,
+              int d, const long long* s) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)s[2] * 2, (cuuint64_t)s[1] * 2,
+                                 (cuuint64_t)s[0] * 2};
+  const cuuint32_t box[4] = {kHeadDim, hopper::kBlockN, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 bool aligned16(const void* p) {
@@ -229,29 +748,57 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // strides: element strides (batch, head, token) of q, k, v and out, in that
-// order (12 values).  The head dim has unit stride in all four.
+// order (12 values).  The head dim has unit stride in all four.  elem_bytes
+// 2 runs the bf16 body, which needs d % 8 == 0 and 16-byte aligned q, k, v
+// bases and strides (TMA); 4 runs the f32 body.
 extern "C" int fixed_max_attention_launch(const void* q, const void* k,
                                           const void* v, void* out, int batch,
                                           int heads, int n, int d,
                                           const long long* strides,
-                                          float q_scale, void* stream) {
-  if (d < 1 || d > kHeadDim) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fixed_max_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
+                                          float q_scale, int elem_bytes,
+                                          void* stream) {
+  if (d < 1 || d > kHeadDim || n < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* ptrs[4] = {q, k, v, out};
-  bool vec = d % 8 == 0;
-  for (int t = 0; t < 4; ++t) {
-    vec = vec && aligned16(ptrs[t]);
-    for (int s = 0; s < 3; ++s) vec = vec && strides[3 * t + s] % 8 == 0;
+  if (elem_bytes == 4) {
+    cudaError_t err = cudaFuncSetAttribute(
+        simt::attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        simt::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    bool vec = true;  // 16-byte loads: aligned bases, strides % 4 == 0
+    for (int t = 0; t < 4; ++t) {
+      vec = vec && aligned16(ptrs[t]);
+      for (int s = 0; s < 3; ++s) vec = vec && strides[3 * t + s] % 4 == 0;
+    }
+    const simt::View views[3] = {
+        {static_cast<const float*>(q), strides[0], strides[1], strides[2]},
+        {static_cast<const float*>(k), strides[3], strides[4], strides[5]},
+        {static_cast<const float*>(v), strides[6], strides[7], strides[8]}};
+    dim3 grid((n + simt::kTileQ - 1) / simt::kTileQ, heads, batch);
+    simt::attention_kernel<<<grid, simt::kThreads, simt::kSmemBytes, st>>>(
+        views[0], views[1], views[2], static_cast<float*>(out), strides[9],
+        strides[10], strides[11], n, d, q_scale, vec);
+    return (int)cudaGetLastError();
   }
-  const View qv{static_cast<const __nv_bfloat16*>(q), strides[0], strides[1], strides[2]};
-  const View kv{static_cast<const __nv_bfloat16*>(k), strides[3], strides[4], strides[5]};
-  const View vv{static_cast<const __nv_bfloat16*>(v), strides[6], strides[7], strides[8]};
-  dim3 grid((n + kTileQ - 1) / kTileQ, heads, batch);
-  fixed_max_attention_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      qv, kv, vv, static_cast<__nv_bfloat16*>(out), strides[9], strides[10],
-      strides[11], n, d, q_scale, vec);
+  if (elem_bytes != 2 || d % 8 != 0) return (int)cudaErrorInvalidValue;
+  for (int t = 0; t < 3; ++t) {
+    if (!aligned16(ptrs[t])) return (int)cudaErrorInvalidValue;
+    for (int s = 0; s < 3; ++s)
+      if (strides[3 * t + s] % 8 != 0 || strides[3 * t + s] <= 0)
+        return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap maps[3];
+  for (int t = 0; t < 3; ++t)
+    if (!make_map(&maps[t], ptrs[t], batch, heads, n, d, strides + 3 * t))
+      return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      hopper::attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hopper::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const hopper::Out o{static_cast<__nv_bfloat16*>(out), strides[9], strides[10],
+                      strides[11]};
+  dim3 grid((n + hopper::kBlockM - 1) / hopper::kBlockM, heads, batch);
+  hopper::attention_kernel<<<grid, hopper::kThreads, hopper::kSmemBytes, st>>>(
+      maps[0], maps[1], maps[2], o, n, d, q_scale);
   return (int)cudaGetLastError();
 }

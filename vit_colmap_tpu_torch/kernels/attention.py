@@ -3,9 +3,12 @@ and on head-major tensors.
 
 Counterparts of ``vit_colmap_tpu/ops/pallas/attention_kernel.py``
 ``fixed_max_attention_qkv`` (:func:`attention_qkv`) and
-``fixed_max_attention`` (:func:`fixed_max_attention`).  Both launch one CUDA
-body, ``csrc/fixed_max_attention.cu``, which reads strided (batch, head,
-token, dim) views: the packed layout is a set of strides, not a copy.
+``fixed_max_attention`` (:func:`fixed_max_attention`).  Both call one
+launcher, ``csrc/fixed_max_attention.cu``, which reads strided (batch, head,
+token, dim) views: the packed layout is a set of strides, not a copy.  bf16
+views go to the Hopper body (TMA-fed ``wgmma``), which reads each view
+through a 4-D tensor map described by :func:`tma_layout`; f32 views go to
+the SIMT body.
 
 Numerics: q is scaled by ``sm_scale * log2(e)`` in f32 and rounded back to
 the input dtype, ``p = exp2(min(s, 100))`` with no running max, p rounded to
@@ -24,6 +27,9 @@ from vit_colmap_tpu_torch.kernels import launches
 LOG2E = math.log2(math.e)
 CLAMP = 100.0
 MAX_HEAD_DIM = 64
+# One TMA tile of the bf16 body: (dims, tokens, heads, images).
+TMA_BOX = (64, 128, 1, 1)
+DTYPE_BYTES = {torch.bfloat16: 2, torch.float32: 4}
 
 
 def _check_layout(qkv: torch.Tensor, num_heads: int) -> int:
@@ -95,32 +101,78 @@ def attention_qkv_plain(
     return out.transpose(1, 2).reshape(qkv.shape[0], qkv.shape[1], -1)
 
 
-def _launch(q, k, v, out, sm_scale: float, name: str) -> None:
-    """One launch of the CUDA kernel on (B, H, N, d) views."""
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 body's TMA can read a (B, H, N, d) view in place:
+    d % 8 == 0, a 16-byte aligned base, and batch / head / token strides that
+    are positive multiples of 8 elements (16 bytes)."""
+    return (
+        t.shape[-1] % 8 == 0
+        and t.data_ptr() % 16 == 0
+        and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])
+    )
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """The view itself when :func:`tma_ready`, else a copy into zero-padded
+    (B, H, N, ceil(d / 8) * 8) storage: a layout step on the same device."""
+    if tma_ready(t):
+        return t
+    B, H, N, d = t.shape
+    padded = t.new_zeros(B, H, N, -(-d // 8) * 8)
+    padded[..., :d] = t
+    return padded
+
+
+def tma_layout(t: torch.Tensor) -> dict:
+    """The tensor map that ``fixed_max_attention_launch`` encodes for one
+    (B, H, N, d) operand view: dims innermost first (d, N, H, B), byte
+    strides of the token, head and batch axes, and the box.  Tokens have an
+    axis of their own, so a box that runs past N is zero-filled by TMA and
+    never reads the next image or head; so is a box dim past d."""
+    B, H, N, d = t.shape
+    e = t.element_size()
+    sb, sh, sn = t.stride()[:3]
+    return {"dims": (d, N, H, B), "strides": (sn * e, sh * e, sb * e), "box": TMA_BOX}
+
+
+def _launch(q, k, v, out, sm_scale: float, name: str) -> torch.Tensor:
+    """One launch of the CUDA kernel on (B, H, N, d) views; returns ``out``.
+
+    bf16 views that TMA cannot read in place are first copied by
+    :func:`tma_operand`, and a padded head dim is cut off the result."""
     from vit_colmap_tpu_torch.kernels.build import check, library
 
     if out.device.type != "cuda":
         raise ValueError(f"{name} kernel runs on CUDA tensors, got {out.device}")
     for t in (q, k, v):
-        if t.device != out.device or t.dtype != torch.bfloat16:
+        if t.device != out.device or t.dtype != out.dtype or t.dtype not in DTYPE_BYTES:
             raise ValueError(
-                f"{name} kernel takes bf16 tensors on one CUDA device, got "
-                f"{t.dtype} on {t.device}"
+                f"{name} kernel takes bf16 or f32 tensors of one dtype on one CUDA "
+                f"device, got {t.dtype} on {t.device}"
             )
         if t.stride(-1) != 1:
             raise ValueError(f"{name} kernel needs unit stride along head_dim")
     B, H, N, d = q.shape
     if B == 0 or H == 0 or N == 0 or d == 0:
-        return
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        return out
+    target = out
+    if q.dtype == torch.bfloat16:
+        q, k, v = (tma_operand(t) for t in (q, k, v))
+        if q.shape[-1] != d:
+            target = _empty_out(q)
+    strides = [s for t in (q, k, v, target) for s in t.stride()[:3]]
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().fixed_max_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, N, d,
-            (ctypes.c_longlong * 12)(*strides), float(sm_scale) * LOG2E, stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), target.data_ptr(), B, H, N,
+            q.shape[-1], (ctypes.c_longlong * 12)(*strides), float(sm_scale) * LOG2E,
+            DTYPE_BYTES[q.dtype], stream,
         )
     check(err, name)
     launches[name] += 1
+    if target is not out:
+        out.copy_(target[..., :d])
+    return out
 
 
 def fixed_max_attention(
@@ -130,14 +182,12 @@ def fixed_max_attention(
 
     Takes strided views (unit stride along d), so a caller can pass the
     permuted heads of its qkv projection without a copy.  The result is a
-    (B, H, N, d) view of (B, N, H, d) storage.  CUDA tensors (bf16) go to
-    the kernel, CPU tensors (f32 or bf16) to the plain version."""
+    (B, H, N, d) view of (B, N, H, d) storage.  CUDA tensors (bf16 or f32)
+    go to the kernel, CPU tensors to the plain version."""
     _check_heads(q, k, v)
     if q.device.type == "cpu":
         return fixed_max_attention_plain(q, k, v, sm_scale)
-    out = _empty_out(q)
-    _launch(q, k, v, out, sm_scale, "fixed_max_attention")
-    return out
+    return _launch(q, k, v, _empty_out(q), sm_scale, "fixed_max_attention")
 
 
 def attention_qkv(
@@ -145,7 +195,7 @@ def attention_qkv(
 ) -> torch.Tensor:
     """Kernel 1: packed (B, N, 3*D) ``[q | k | v]`` (head h at columns
     64h..64h+63 of each section) -> (B, N, D).  The CUDA kernel for a CUDA
-    tensor (bf16, contiguous), the plain version for a CPU tensor."""
+    tensor (bf16 or f32, contiguous), the plain version for a CPU tensor."""
     if qkv.device.type == "cpu":
         return attention_qkv_plain(qkv, num_heads, sm_scale)
     D = _check_layout(qkv, num_heads)
@@ -153,6 +203,5 @@ def attention_qkv(
         raise ValueError("attention_qkv kernel needs a contiguous qkv")
     B, N, _ = qkv.shape
     q, k, v = _split_heads(qkv, num_heads)
-    out = _empty_out(q)
-    _launch(q, k, v, out, sm_scale, "attention_qkv")
+    out = _launch(q, k, v, _empty_out(q), sm_scale, "attention_qkv")
     return out.transpose(1, 2).reshape(B, N, D)

@@ -1,10 +1,13 @@
-"""Build the port's CUDA kernels with one ``nvcc`` call and load them.
+"""Build the port's CUDA kernels with ``nvcc`` and load them.
 
 Every ``csrc/*.cu`` source exposes its kernels behind ``extern "C"``
 launchers that return a CUDA error code, so the shared library needs no
-PyTorch headers: ``nvcc`` compiles it in seconds and :mod:`ctypes` binds it.
-The library is built at first use in each process, into ``_build/`` beside
-the package (listed in ``.gitignore``), and the build time is printed.
+PyTorch headers and no ``libcuda`` (the attention launcher reaches the
+driver's ``cuTensorMapEncodeTiled`` through the runtime's entry-point
+query): :mod:`ctypes` binds it.  The library is built at first use in each
+process, into ``_build/`` beside the package (listed in ``.gitignore``):
+one ``nvcc -c`` per source, all started together, then one link; the build
+time is printed.
 """
 
 from __future__ import annotations
@@ -24,16 +27,17 @@ LIBRARY_NAME = "libvit_colmap_kernels.so"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # launcher name -> argument types; every launcher returns a cudaError_t.
 SIGNATURES = {
-    # q, k, v, out, batch, heads, n, d, strides (int64[12]), q_scale, stream
+    # q, k, v, out, batch, heads, n, d, strides (int64[12]), q_scale,
+    # elem_bytes (2: bf16, 4: f32), stream
     "fixed_max_attention_launch": [_P] * 4 + [_I] * 4
-    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _P],
+    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _P],
     # d1, d2, valid1, valid2, best, second, best_idx, col_val, col_row,
     # pairs, n, m, stream
     "match_topk2_colmax_launch": [_P] * 9 + [_I, _I, _I, _P],
@@ -55,24 +59,48 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _run(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _finish(proc: subprocess.Popen, cmd: list[str]) -> None:
+    output = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}")
+
+
 def build(out_dir: Path = BUILD_DIR) -> Path:
-    """Compile every ``csrc/*.cu`` into one shared library; returns its path."""
-    sources = sorted(str(p) for p in CSRC_DIR.glob("*.cu"))
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` each, in parallel) and link
+    them into one shared library; returns its path."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
     out_dir.mkdir(parents=True, exist_ok=True)
     target = out_dir / LIBRARY_NAME
-    tmp = out_dir / f".{LIBRARY_NAME}.{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    tag = str(os.getpid())
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    objects = [out_dir / f".{src.stem}.{tag}.o" for src in sources]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objects)]
+    procs = [_run(cmd) for cmd in compiles]
+    try:
+        for proc, cmd in zip(procs, compiles):
+            _finish(proc, cmd)
+    finally:  # a failed source stops the others
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = out_dir / f".{LIBRARY_NAME}.{tag}"
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+    _finish(_run(link), link)
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, target)  # atomic: concurrent processes never see half
     print(
-        f"[vit_colmap_tpu_torch] built {len(sources)} CUDA sources with one "
-        f"nvcc call in {time.perf_counter() - t0:.1f} s -> {target}",
+        f"[vit_colmap_tpu_torch] built {len(sources)} CUDA sources with "
+        f"{len(sources)} parallel nvcc calls and one link in "
+        f"{time.perf_counter() - t0:.1f} s -> {target}",
         flush=True,
     )
     return target

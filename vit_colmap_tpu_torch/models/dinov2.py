@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vit_colmap_tpu_torch.device import exact_f32_convolutions
 from vit_colmap_tpu_torch.kernels import attention as attention_kernel
 
 PATCH_SIZE = 14
@@ -278,10 +279,11 @@ class DinoV2(nn.Module):
         B, H, W, _ = x.shape
         gh, gw = H // c.patch_size, W // c.patch_size
         pe = self.patch_embed.proj
-        t = F.conv2d(
-            x.permute(0, 3, 1, 2).to(c.dtype), pe.weight.to(c.dtype),
-            pe.bias.to(c.dtype), stride=c.patch_size,
-        )
+        with exact_f32_convolutions():  # no TF32 when c.dtype is f32
+            t = F.conv2d(
+                x.permute(0, 3, 1, 2).to(c.dtype), pe.weight.to(c.dtype),
+                pe.bias.to(c.dtype), stride=c.patch_size,
+            )
         t = t.flatten(2).transpose(1, 2)  # (B, gh*gw, D)
         pos = interpolate_pos_embed(self.pos_embed, gh, gw, c.pretrain_grid)
         cls = self.cls_token.to(c.dtype).expand(B, -1, -1)

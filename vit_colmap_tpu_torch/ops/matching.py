@@ -5,9 +5,11 @@ semantics: L2-normalized descriptors, cosine similarity, angular distance
 ``acos(sim)``; a match is kept iff ``acos(best) <= max_distance``,
 ``acos(best) <= max_ratio * acos(second)`` and, with ``cross_check``, it is
 a mutual nearest neighbour.  ``match_pairs_batched`` is the straightforward
-matmul + top-2 reference; the pipeline matches with the kernels
-(``kernels/match.py``), which compute the same function without the (N, M)
-similarity in memory.  ``prepare_int8_descriptors`` feeds the int8 matcher.
+matmul + top-2 matcher (the reference's, for ``use_pallas=False`` and for
+widths the kernels are not built for); the pipeline otherwise matches with
+the kernels (``kernels/match.py``), which compute the same function without
+the (N, M) similarity in memory.  ``prepare_int8_descriptors`` feeds the int8
+matcher.
 """
 
 from __future__ import annotations
@@ -84,18 +86,21 @@ def prepare_int8_descriptors(desc_u8: torch.Tensor, valid: torch.Tensor, encodin
 
 
 def get_pair_matcher(use_pallas: bool | None = None):
-    """``(d1, d2, v1, v2, max_ratio, max_distance, cross_check) -> (P, N)``:
-    the matching kernel, which takes its plain version on CPU tensors.
+    """``(d1, d2, v1, v2, max_ratio, max_distance, cross_check) -> (P, N)``,
+    dispatched as the reference's matcher is.
 
-    ``use_pallas`` keeps the reference's knob; None and True select the
-    kernel, and False (the reference's matmul matcher) is not ported."""
+    ``use_pallas`` keeps the reference's knob.  None or True: descriptors of
+    the width the kernels are built for (``match_kernel.DIM``) go to the
+    matching kernel, which takes its plain version on CPU tensors; other
+    widths go to :func:`match_pairs_batched`, the reference's matmul matcher,
+    on either device.  False: always :func:`match_pairs_batched`."""
     if use_pallas is False:
-        raise NotImplementedError(
-            "MatchingConfig.use_pallas=False (the matmul matcher) is not "
-            "ported: the port always matches with its kernel"
-        )
+        return match_pairs_batched
 
     def matcher(d1, d2, v1, v2, max_ratio=0.8, max_distance=0.7, cross_check=True):
+        if d1.shape[-1] != match_kernel.DIM:
+            return match_pairs_batched(d1, d2, v1, v2, max_ratio, max_distance,
+                                       cross_check)
         return match_kernel.match_pairs(
             d1.contiguous(), d2.contiguous(), v1.contiguous(), v2.contiguous(),
             max_ratio, max_distance, cross_check,

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from vit_colmap_tpu_torch.device import exact_f32_convolutions
+
 
 def _gaussian_kernel1d(sigma: float, radius: int, device) -> torch.Tensor:
     x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
@@ -24,10 +26,12 @@ def gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
     k = _gaussian_kernel1d(sigma, radius, x.device)
     taps = 2 * radius + 1
     # Along H: pad the rows with their edge values, then a 1-D correlation.
-    xp = F.pad(x[:, None], (0, 0, radius, radius), mode="replicate")
-    xh = F.conv2d(xp, k.reshape(1, 1, taps, 1))
-    xp = F.pad(xh, (radius, radius, 0, 0), mode="replicate")
-    return F.conv2d(xp, k.reshape(1, 1, 1, taps))[:, 0]
+    # f32 throughout, as the reference: no TF32 in cuDNN.
+    with exact_f32_convolutions():
+        xp = F.pad(x[:, None], (0, 0, radius, radius), mode="replicate")
+        xh = F.conv2d(xp, k.reshape(1, 1, taps, 1))
+        xp = F.pad(xh, (radius, radius, 0, 0), mode="replicate")
+        return F.conv2d(xp, k.reshape(1, 1, 1, taps))[:, 0]
 
 
 def _gradients(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
