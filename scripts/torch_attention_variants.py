@@ -23,8 +23,9 @@ that no one mistakes them for the kernel:
 * ``stages2`` / ``stages3``: a k/v ring of 2 or 3 stages instead of 4.
 
 Then it runs the base kernel back to back for about two seconds and samples
-the SM clock and the power draw with nvidia-smi.  It prints one JSON object
-last.  Needs one CUDA GPU and nvcc.
+the SM clock and the power draw with nvidia-smi (``chip_smoke.sustained``;
+the timing helpers are chip_smoke's too).  It prints one JSON object last.
+Needs one CUDA GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -32,12 +33,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
-import threading
-import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
@@ -83,28 +81,6 @@ def build_variants(out: Path, source: str, nvcc: str, flags: list[str]) -> dict:
     return libs
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def nvidia_smi(query: str) -> str:
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rounds", type=int, default=2)
@@ -116,6 +92,7 @@ def main() -> int:
         print("needs a CUDA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    from chip_smoke import cuda_ms, nvidia_smi, sustained
     from vit_colmap_tpu_torch.kernels import attention, build
 
     source = (build.CSRC_DIR / "fixed_max_attention.cu").read_text()
@@ -137,10 +114,10 @@ def main() -> int:
 
         errors, times = {}, {"sdpa": []}
         for rnd in range(args.rounds):
-            times["sdpa"].append(cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
+            times["sdpa"].append(cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20))
             for name, lib in libs.items():
                 build.library = lambda lib=lib: lib  # this variant's launcher
-                times.setdefault(name, []).append(cuda_ms(kernel))
+                times.setdefault(name, []).append(cuda_ms(kernel, 20))
                 if rnd == 0:
                     errors[name] = (kernel().float() - ref).abs().max().item()
         for name, t in times.items():
@@ -148,27 +125,16 @@ def main() -> int:
             print(f"{name}: {' / '.join(f'{x:.3f}' for x in t)} ms{err}", flush=True)
 
         build.library = lambda: libs["base"]
-        samples = []
-
-        def sample():
-            for _ in range(6):
-                samples.append(nvidia_smi("clocks.sm,power.draw"))
-                time.sleep(0.3)
-
-        sampler = threading.Thread(target=sample)
-        sampler.start()
-        while sampler.is_alive():
-            for _ in range(50):
-                kernel()
-            torch.cuda.synchronize()
-        print(f"sustained base kernel: clocks.sm, power.draw {samples}", flush=True)
+        held = sustained(kernel)
+        print(f"sustained base kernel: SM clock {held['mhz']} MHz, "
+              f"power {held['watts']} W", flush=True)
 
     card = nvidia_smi("name,power.limit")
     print(card)
     print(json.dumps({"card": card, "shape": [B, N, HEADS, 64], "ms": times,
                       "max_abs_err": errors,
                       "err_bound": 4 * 2**-8 * ref.abs().max().item(),
-                      "sustained": samples}))
+                      "sustained": held}))
     return 0
 
 

@@ -54,34 +54,43 @@ def test_attention_kernel_rejects_f16(cuda_device):
             torch.zeros(1, 64, 384, dtype=torch.float16, device=cuda_device), 2, 0.125)
 
 
-def _match_case(kind, device, P=3, N=1000, M=1024):
-    g = torch.Generator(device=device).manual_seed(len(kind))
+def _match_case(kind, device, P=3, N=1000, M=1024, D=128):
+    g = torch.Generator(device=device).manual_seed(len(kind) + (D != 128) * D)
     if kind == "ties":  # integer descriptors: exact dot products, many ties
-        d1 = torch.randint(-2, 3, (P, N, 128), generator=g, device=device).float()
+        d1 = torch.randint(-2, 3, (P, N, D), generator=g, device=device).float()
         d2 = torch.roll(d1, N // 2, dims=1)[:, : M - 24]
         d2 = torch.cat([d2, d2[:, :24]], dim=1).contiguous()
     else:
         d1 = torch.nn.functional.normalize(
-            torch.randn(P, N, 128, generator=g, device=device), dim=-1)
+            torch.randn(P, N, D, generator=g, device=device), dim=-1)
         d2 = torch.nn.functional.normalize(
-            torch.randn(P, M, 128, generator=g, device=device), dim=-1)
+            torch.randn(P, M, D, generator=g, device=device), dim=-1)
     v1 = torch.rand(P, N, generator=g, device=device) < 0.9
     v2 = torch.rand(P, M, generator=g, device=device) < 0.9
     return d1, d2, v1, v2
 
 
+# (kind, D, M): the main path's width under the kind's name, then wider
+# ones, then M = 1000, not a multiple of the kernels' 128-column tiles (N =
+# 1000 is ragged in every case).
+WIDTHS = ([pytest.param(k, 128, 1024, id=k) for k in ("random", "ties")]
+          + [pytest.param(k, d, 1024, id=f"{k}-{d}") for d in (256, 384)
+             for k in ("random", "ties")]
+          + [pytest.param(k, d, 1000, id=f"{k}-{d}-m1000")
+             for k, d in (("random", 128), ("ties", 384))])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["random", "ties"])
-def test_match_kernel_matches_plain(cuda_device, kind):
-    inputs = _match_case(kind, cuda_device)
+@pytest.mark.parametrize("kind,dim,m", WIDTHS)
+def test_match_kernel_matches_plain(cuda_device, kind, dim, m):
+    inputs = _match_case(kind, cuda_device, M=m, D=dim)
     before = launches["match_topk2_colmax"]
     out = match.match_topk2_colmax(*inputs)
     torch.cuda.synchronize()
     assert launches["match_topk2_colmax"] == before + 1
     ref = match.topk2_colmax_plain(*inputs)
-    assert torch.equal(out[2], ref[2]) and torch.equal(out[3], ref[3])
-    assert (out[0] - ref[0]).abs().max().item() <= 1e-6
-    assert (out[1] - ref[1]).abs().max().item() <= 1e-6
+    for o, r in zip(out, ref):  # identical indices, bit-equal values
+        assert torch.equal(o, r)
     matches = match.match_pairs(*inputs)
     plain = match.filter_matches(*ref, inputs[2])
     assert torch.equal(matches, plain)
@@ -89,26 +98,51 @@ def test_match_kernel_matches_plain(cuda_device, kind):
 
 @pytest.mark.gpu
 def test_match_kernel_rejects_other_widths(cuda_device):
-    d = torch.zeros(1, 128, 256, device=cuda_device)
+    """No fallback: a width that is not a multiple of 128 raises."""
+    d = torch.zeros(1, 128, 200, device=cuda_device)
     v = torch.ones(1, 128, dtype=torch.bool, device=cuda_device)
     with pytest.raises(NotImplementedError):
         match.match_topk2_colmax(d, d, v, v)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dim,use_pallas", [(256, None), (128, False)])
+@pytest.mark.parametrize("dim,use_pallas", [(200, None), (128, False)])
 def test_pair_matcher_takes_matmul_matcher(cuda_device, dim, use_pallas):
-    """A width the kernels are not built for, or use_pallas=False, goes to
+    """A width that is not a multiple of 128, or use_pallas=False, goes to
     the matmul matcher on the card, as in the reference; no kernel runs."""
     from vit_colmap_tpu_torch.ops.matching import get_pair_matcher, match_pairs_batched
 
     d1, d2, v1, v2 = _match_case("random", cuda_device, P=2, N=256, M=384)
     if dim != 128:
-        d1, d2 = (torch.cat([d, d.flip(-1)], dim=-1) / 2**0.5 for d in (d1, d2))
+        d1, d2 = (torch.nn.functional.normalize(
+            torch.cat([d, d.flip(-1)], dim=-1)[..., :dim], dim=-1) for d in (d1, d2))
     before = sum(launches.values())
     out = get_pair_matcher(use_pallas)(d1, d2, v1, v2)
     torch.cuda.synchronize()
     assert sum(launches.values()) == before
+    assert torch.equal(out, match_pairs_batched(d1, d2, v1, v2))
+
+
+@pytest.mark.gpu
+def test_pair_matcher_takes_kernel_at_256(cuda_device):
+    """256-wide descriptors go to kernel 2 on the card, as the reference's
+    matcher takes its Pallas kernel for every multiple of 128; the matches
+    equal the matmul matcher's on descriptors with many true matches."""
+    from vit_colmap_tpu_torch.ops.matching import get_pair_matcher, match_pairs_batched
+
+    g = torch.Generator(device=cuda_device).manual_seed(256)
+    d1 = torch.nn.functional.normalize(
+        torch.randn(2, 256, 256, generator=g, device=cuda_device), dim=-1)
+    perm = torch.randperm(384, generator=g, device=cuda_device) % 256
+    noise = 0.05 * torch.randn(2, 384, 256, generator=g, device=cuda_device)
+    d2 = torch.nn.functional.normalize(d1[:, perm] + noise, dim=-1)
+    v1 = torch.rand(2, 256, generator=g, device=cuda_device) < 0.9
+    v2 = torch.rand(2, 384, generator=g, device=cuda_device) < 0.9
+    before = launches["match_topk2_colmax"]
+    out = get_pair_matcher()(d1, d2, v1, v2)
+    torch.cuda.synchronize()
+    assert launches["match_topk2_colmax"] == before + 1
+    assert (out >= 0).sum() > 100
     assert torch.equal(out, match_pairs_batched(d1, d2, v1, v2))
 
 
@@ -149,9 +183,9 @@ def test_head_major_attention_kernel_takes_qkv_views(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["random", "ties"])
-def test_topk2_kernel_matches_plain(cuda_device, kind):
-    d1, d2, v1, v2 = _match_case(kind, cuda_device)
+@pytest.mark.parametrize("kind,dim,m", WIDTHS)
+def test_topk2_kernel_matches_plain(cuda_device, kind, dim, m):
+    d1, d2, v1, v2 = _match_case(kind, cuda_device, M=m, D=dim)
     before = launches["match_topk2"]
     out = match.match_topk2(d1, d2, v2)
     torch.cuda.synchronize()
@@ -163,13 +197,13 @@ def test_topk2_kernel_matches_plain(cuda_device, kind):
     assert torch.equal(two_pass, match.match_pairs(d1, d2, v1, v2))
 
 
-def _u8_case(kind, device, P=3, N=1000, M=1024):
-    g = torch.Generator(device=device).manual_seed(len(kind) + 1)
-    q1 = torch.randint(0, 256, (P, N, 128), generator=g, device=device).to(torch.uint8)
+def _u8_case(kind, device, P=3, N=1000, M=1024, D=128):
+    g = torch.Generator(device=device).manual_seed(len(kind) + 1 + (D != 128) * D)
+    q1 = torch.randint(0, 256, (P, N, D), generator=g, device=device).to(torch.uint8)
     if kind == "ties":  # every row of q1 twice in q2: exact ties
         q2 = torch.repeat_interleave(torch.roll(q1, N // 4, dims=1), 2, dim=1)[:, :M]
     else:
-        q2 = torch.randint(0, 256, (P, M, 128), generator=g, device=device)
+        q2 = torch.randint(0, 256, (P, M, D), generator=g, device=device)
         q2 = q2.to(torch.uint8)
     v1 = torch.rand(P, N, generator=g, device=device) < 0.9
     v2 = torch.rand(P, M, generator=g, device=device) < 0.9
@@ -177,10 +211,12 @@ def _u8_case(kind, device, P=3, N=1000, M=1024):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("kind,dim,m", WIDTHS)
 @pytest.mark.parametrize("encoding", ["signed", "unsigned"])
-def test_int8_kernel_matches_plain(cuda_device, encoding, kind):
-    q1, q2, v1, v2 = _u8_case(kind, cuda_device)
+def test_int8_kernel_matches_plain(cuda_device, encoding, kind, dim, m):
+    """Uniform random bytes keep the squared norms below 2^24 at D = 384
+    (about 255^2 * D / 3), so the operands are exact."""
+    q1, q2, v1, v2 = _u8_case(kind, cuda_device, M=m, D=dim)
     a1, s1, i1, coef = prepare_int8_descriptors(q1, v1, encoding)
     a2, s2, i2, _ = prepare_int8_descriptors(q2, v2, encoding)
     ops = (a1, a2, s1, s2, i1, i2, coef)

@@ -31,20 +31,20 @@ def _normalized(rng, shape):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
-def _case(kind: str, P=2, N=256, M=384):
+def _case(kind: str, P=2, N=256, M=384, D=128):
     """(d1, d2, valid1, valid2) as numpy for one test case."""
-    rng = np.random.default_rng(sum(map(ord, kind)))
+    rng = np.random.default_rng(sum(map(ord, kind)) + (D != 128) * D)
     if kind == "random":
-        d1, d2 = _normalized(rng, (P, N, 128)), _normalized(rng, (P, M, 128))
+        d1, d2 = _normalized(rng, (P, N, D)), _normalized(rng, (P, M, D))
     elif kind == "permutation":
         # d2 holds noisy, permuted copies of d1's rows: many mutual matches.
-        d1 = _normalized(rng, (P, N, 128))
+        d1 = _normalized(rng, (P, N, D))
         perm = rng.permutation(M) % N
-        d2 = d1[:, perm] + 0.05 * rng.standard_normal((P, M, 128)).astype(np.float32)
+        d2 = d1[:, perm] + 0.05 * rng.standard_normal((P, M, D)).astype(np.float32)
         d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
     elif kind == "ties":
         # Integer descriptors: every dot product is exact, ties abound.
-        d1 = rng.integers(-2, 3, (P, N, 128)).astype(np.float32)
+        d1 = rng.integers(-2, 3, (P, N, D)).astype(np.float32)
         d2 = np.concatenate([d1[:, N // 2:], d1[:, : N // 2]], axis=1)[:, :M]
         d2 = np.concatenate([d2, d2[:, : M - d2.shape[1]]], axis=1)
     else:
@@ -55,11 +55,19 @@ def _case(kind: str, P=2, N=256, M=384):
 
 
 CASES = ["random", "permutation", "ties"]
+# Wider descriptors, which the kernels take as the reference's do.
+WIDE = [("random", 256), ("ties", 256), ("random", 384), ("ties", 384)]
 
 
-@pytest.mark.parametrize("kind", CASES)
-def test_topk2_colmax_matches_jax_kernel(kind):
-    d1, d2, v1, v2 = _case(kind)
+def _with_widths(kinds, wide=WIDE):
+    """(kind, D) cases: D = 128 under the kind's name, then the wide ones."""
+    return ([pytest.param(k, 128, id=k) for k in kinds]
+            + [pytest.param(k, d, id=f"{k}-{d}") for k, d in wide])
+
+
+@pytest.mark.parametrize("kind,dim", _with_widths(CASES))
+def test_topk2_colmax_matches_jax_kernel(kind, dim):
+    d1, d2, v1, v2 = _case(kind, D=dim)
     ref = pallas_topk2_colmax(*map(jnp.asarray, (d1, d2, v1, v2)), interpret=True)
     out = match.match_topk2_colmax(*map(torch.from_numpy, (d1, d2, v1, v2)))
     best, second, best_idx, col_row = (np.asarray(r) for r in ref)
@@ -94,15 +102,33 @@ def test_match_pairs_batched_matches_jax(kind):
     np.testing.assert_array_equal(fused.numpy(), ref)
 
 
-@pytest.mark.parametrize("kind", ["random", "permutation"])
-def test_pair_matcher_other_width_matches_jax(kind):
-    """256-wide descriptors: on CPU tensors the matcher's plain version."""
+@pytest.mark.parametrize("kind,dim", [pytest.param("random", 256, id="random"),
+                                      pytest.param("permutation", 256, id="permutation"),
+                                      pytest.param("permutation", 200, id="permutation-200")])
+def test_pair_matcher_other_width_matches_jax(kind, dim, monkeypatch):
+    """Descriptors wider than 128.  A multiple of 128 (256) goes to the
+    matching kernel, which takes its plain version on CPU tensors, as the
+    reference's matcher takes its Pallas kernel; another width (200) goes to
+    ``match_pairs_batched`` in both."""
     d1, d2, v1, v2 = _case(kind, P=1, N=128, M=128)
-    d1, d2 = (np.concatenate([d, d[..., ::-1]], axis=-1) / np.sqrt(2.0) for d in (d1, d2))
+    d1, d2 = (np.concatenate([d, d[..., ::-1]], axis=-1)[..., :dim] for d in (d1, d2))
+    d1, d2 = (d / np.linalg.norm(d, axis=-1, keepdims=True) for d in (d1, d2))
     d1, d2 = d1.astype(np.float32), d2.astype(np.float32)
+    taken = []
+    for name in ("match_pairs", "match_pairs_batched"):
+        module = match if name == "match_pairs" else matching
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name,
+                            lambda *a, fn=fn, name=name, **k: taken.append(name) or fn(*a, **k))
     ref = np.asarray(jmatching.match_pairs_batched(*map(jnp.asarray, (d1, d2, v1, v2))))
     out = matching.get_pair_matcher()(*map(torch.from_numpy, (d1, d2, v1, v2)))
     np.testing.assert_array_equal(out.numpy(), ref)
+    assert taken == ["match_pairs" if dim % 128 == 0 else "match_pairs_batched"]
+    jax_matcher = np.asarray(jmatching.get_pair_matcher(True)(
+        *map(jnp.asarray, (d1, d2, v1, v2))))
+    np.testing.assert_array_equal(out.numpy(), jax_matcher)
+    if kind == "permutation":
+        assert (ref >= 0).sum() > 20
 
 
 @pytest.mark.parametrize("cross_check", [True, False])
@@ -169,11 +195,11 @@ def test_cpu_tensor_takes_plain_version():
 
 # Kernel 4: row top-2 only (cross_check=False, and the two-pass cross-check).
 
-@pytest.mark.parametrize("kind", CASES)
-def test_topk2_matches_jax_kernel(kind):
+@pytest.mark.parametrize("kind,dim", _with_widths(CASES))
+def test_topk2_matches_jax_kernel(kind, dim):
     """Identical indices and bit-equal values, ties and invalid columns
     included."""
-    d1, d2, _, v2 = _case(kind)
+    d1, d2, _, v2 = _case(kind, D=dim)
     ref = pallas_topk2(*map(jnp.asarray, (d1, d2, v2)), interpret=True)
     out = match.match_topk2(*map(torch.from_numpy, (d1, d2, v2)))
     for o, r in zip(out, ref):
@@ -208,14 +234,14 @@ def test_last_column_wins_differs_on_ties():
 
 # Kernel 5: int8 row top-2, and prepare_int8_descriptors.
 
-def _u8_case(kind: str, P=2, N=256, M=384):
+def _u8_case(kind: str, P=2, N=256, M=384, D=128):
     """(q1, q2, valid1, valid2): uint8 descriptors as numpy."""
-    rng = np.random.default_rng(sum(map(ord, kind)) + 1)
-    q1 = rng.integers(0, 256, (P, N, 128), dtype=np.uint8)
+    rng = np.random.default_rng(sum(map(ord, kind)) + 1 + (D != 128) * D)
+    q1 = rng.integers(0, 256, (P, N, D), dtype=np.uint8)
     if kind == "random":
-        q2 = rng.integers(0, 256, (P, M, 128), dtype=np.uint8)
+        q2 = rng.integers(0, 256, (P, M, D), dtype=np.uint8)
     elif kind == "correlated":  # noisy, permuted copies: many matches
-        noise = rng.integers(-20, 20, (P, M, 128))
+        noise = rng.integers(-20, 20, (P, M, D))
         q2 = np.clip(q1[:, rng.permutation(M) % N].astype(int) + noise, 0, 255)
         q2 = q2.astype(np.uint8)
     elif kind == "ties":  # every row of q1 twice in q2: exact ties
@@ -251,13 +277,18 @@ def test_prepare_int8_descriptors_bit_equal(encoding):
         np.testing.assert_array_equal(o.numpy(), r)
 
 
-@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("kind,dim", _with_widths(["random", "ties"]))
 @pytest.mark.parametrize("encoding", ["signed", "unsigned"])
-def test_topk2_int8_matches_jax_kernel(encoding, kind):
+def test_topk2_int8_matches_jax_kernel(encoding, kind, dim):
     """Identical indices and bit-equal values: the plain version rounds each
     float operation of the epilogue on its own, in the reference's order,
-    and so does the reference on the CPU."""
-    q1, q2, v1, v2 = _u8_case(kind)
+    and so does the reference on the CPU.  At D = 384 the inputs' squared
+    norms stay below 2^24, the condition for bit-equal operands
+    (``prepare_int8_descriptors``)."""
+    q1, q2, v1, v2 = _u8_case(kind, D=dim)
+    u = np.concatenate([q1, q2], axis=1).astype(np.int64)
+    u = 2 * u - 255 if encoding == "signed" else u
+    assert (u * u).sum(-1).max() < 2**24
     ref = pallas_topk2_int8(*_int8_ops(q1, q2, v1, v2, encoding, _jax_prepare),
                             interpret=True)
     ops = _int8_ops(q1, q2, v1, v2, encoding, _torch_prepare)

@@ -7,7 +7,9 @@ driver's ``cuTensorMapEncodeTiled`` through the runtime's entry-point
 query): :mod:`ctypes` binds it.  The library is built at first use in each
 process, into ``_build/`` beside the package (listed in ``.gitignore``):
 one ``nvcc -c`` per source, all started together, then one link; the build
-time is printed.
+time is printed, and each source's compiler output (``-Xptxas -v``:
+registers, shared memory and spills of every kernel) is kept beside the
+library as ``<source>.nvcc.log``.
 """
 
 from __future__ import annotations
@@ -39,13 +41,13 @@ SIGNATURES = {
     "fixed_max_attention_launch": [_P] * 4 + [_I] * 4
     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _P],
     # d1, d2, valid1, valid2, best, second, best_idx, col_val, col_row,
-    # pairs, n, m, stream
-    "match_topk2_colmax_launch": [_P] * 9 + [_I, _I, _I, _P],
-    # d1, d2, valid2, best, second, best_idx, pairs, n, m, stream
-    "match_topk2_launch": [_P] * 6 + [_I, _I, _I, _P],
+    # pairs, n, m, dim, stream
+    "match_topk2_colmax_launch": [_P] * 9 + [_I] * 4 + [_P],
+    # d1, d2, valid2, best, second, best_idx, pairs, n, m, dim, stream
+    "match_topk2_launch": [_P] * 6 + [_I] * 4 + [_P],
     # a1, a2, s1, s2, inv1, inv2, coef, best, second, best_idx, pairs, n, m,
-    # stream
-    "match_topk2_int8_launch": [_P] * 10 + [_I, _I, _I, _P],
+    # dim, stream
+    "match_topk2_int8_launch": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 
@@ -64,10 +66,16 @@ def _run(cmd: list[str]) -> subprocess.Popen:
                             text=True)
 
 
-def _finish(proc: subprocess.Popen, cmd: list[str]) -> None:
+def _finish(proc: subprocess.Popen, cmd: list[str]) -> str:
     output = proc.communicate()[0]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}")
+    return output
+
+
+def log_path(source: str, out_dir: Path = BUILD_DIR) -> Path:
+    """Where :func:`build` keeps ``csrc/<source>``'s compiler output."""
+    return out_dir / f"{Path(source).stem}.nvcc.log"
 
 
 def build(out_dir: Path = BUILD_DIR) -> Path:
@@ -80,12 +88,12 @@ def build(out_dir: Path = BUILD_DIR) -> Path:
     nvcc = find_nvcc()
     t0 = time.perf_counter()
     objects = [out_dir / f".{src.stem}.{tag}.o" for src in sources]
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    compiles = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
                 for src, obj in zip(sources, objects)]
     procs = [_run(cmd) for cmd in compiles]
     try:
-        for proc, cmd in zip(procs, compiles):
-            _finish(proc, cmd)
+        for src, proc, cmd in zip(sources, procs, compiles):
+            log_path(src.name, out_dir).write_text(_finish(proc, cmd))
     finally:  # a failed source stops the others
         for proc in procs:
             if proc.poll() is None:

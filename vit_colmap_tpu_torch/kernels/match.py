@@ -21,6 +21,10 @@ dimension (``s = fma(d1[d], d2[d], s)`` for d = 0..D-1); the int8 epilogue
 is separately rounded f32 operations in the reference's order.  The plain
 versions repeat both, so kernels and plain versions agree bit for bit and
 break near-ties the same way.
+
+The kernels take every descriptor width D that is a multiple of
+``WIDTH_STEP`` (128), as the reference's kernels do; they raise
+``NotImplementedError`` for other widths on the card.
 """
 
 from __future__ import annotations
@@ -29,8 +33,8 @@ import torch
 
 from vit_colmap_tpu_torch.kernels import launches
 
-DIM = 128  # descriptor width the kernels are compiled for
-TILE_N = 64  # row tile of kernel 2's column partials
+WIDTH_STEP = 128  # the kernels take descriptor widths that are multiples of this
+TILE_N = 128  # row tile of kernel 2's column partials
 
 
 def similarity_plain(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
@@ -130,8 +134,8 @@ def _check_pair(x1: torch.Tensor, x2: torch.Tensor, rows: dict, name: str):
 
 def _check_cuda(name: str, desc, masks, floats, desc_dtype: torch.dtype) -> None:
     """The kernels' input contract on the card: one CUDA device, contiguous;
-    ``desc`` (the two descriptor tensors) of ``desc_dtype``, width DIM and
-    16-byte aligned, ``masks`` bool, ``floats`` f32; non-empty."""
+    ``desc`` (the two descriptor tensors) of ``desc_dtype``, a multiple of
+    WIDTH_STEP wide and 16-byte aligned, ``masks`` bool, ``floats`` f32; non-empty."""
     tensors = (*desc, *masks, *floats)
     for t in tensors:
         if t.device != desc[0].device or t.device.type != "cuda":
@@ -147,10 +151,10 @@ def _check_cuda(name: str, desc, masks, floats, desc_dtype: torch.dtype) -> None
     if any(t.dtype != torch.float32 for t in floats):
         raise ValueError(f"{name} kernel takes f32 row sums, norms and coef")
     P, N, D = desc[0].shape
-    if D != DIM:
+    if D % WIDTH_STEP:
         raise NotImplementedError(
-            f"{name} kernel is built for D={DIM}, got {D}: other widths are "
-            "not ported yet"
+            f"{name} kernel takes widths that are multiples of {WIDTH_STEP}, got "
+            f"D={D}: match it with ops.matching.match_pairs_batched"
         )
     if P == 0 or N == 0 or desc[1].shape[1] == 0:
         raise ValueError(f"{name} kernel needs non-empty inputs")
@@ -189,7 +193,7 @@ def match_topk2_colmax(
     col_val = torch.empty(P, nt, M, dtype=torch.float32, device=d1.device)
     col_part = torch.empty(P, nt, M, dtype=torch.int32, device=d1.device)
     _run("match_topk2_colmax", d1, d2, valid1, valid2, best, second, best_idx,
-         col_val, col_part, P, N, M)
+         col_val, col_part, P, N, M, d1.shape[2])
     # Merge the per-row-tile column partials: the first tile holding the
     # max wins (argmax returns the first maximum), as in the reference.
     blk = torch.argmax(col_val, dim=1, keepdim=True)
@@ -207,7 +211,8 @@ def match_topk2(d1: torch.Tensor, d2: torch.Tensor, valid2: torch.Tensor):
     _check_cuda("match_topk2", (d1, d2), (valid2,), (), torch.float32)
     P, N, _ = d1.shape
     best, second, best_idx = _row_results(P, N, d1.device)
-    _run("match_topk2", d1, d2, valid2, best, second, best_idx, P, N, d2.shape[1])
+    _run("match_topk2", d1, d2, valid2, best, second, best_idx, P, N, d2.shape[1],
+         d1.shape[2])
     return best, second, best_idx
 
 
@@ -228,7 +233,7 @@ def match_topk2_int8(a1, a2, s1, s2, inv1, inv2, coef):
     P, N, _ = a1.shape
     best, second, best_idx = _row_results(P, N, a1.device)
     _run("match_topk2_int8", a1, a2, s1, s2, inv1, inv2, coef, best, second,
-         best_idx, P, N, a2.shape[1])
+         best_idx, P, N, a2.shape[1], a1.shape[2])
     return best, second, best_idx
 
 

@@ -6,7 +6,7 @@ semantics: L2-normalized descriptors, cosine similarity, angular distance
 ``acos(best) <= max_ratio * acos(second)`` and, with ``cross_check``, it is
 a mutual nearest neighbour.  ``match_pairs_batched`` is the straightforward
 matmul + top-2 matcher (the reference's, for ``use_pallas=False`` and for
-widths the kernels are not built for); the pipeline otherwise matches with
+widths that are not a multiple of 128); the pipeline otherwise matches with
 the kernels (``kernels/match.py``), which compute the same function without
 the (N, M) similarity in memory.  ``prepare_int8_descriptors`` feeds the int8
 matcher.
@@ -64,10 +64,15 @@ def prepare_int8_descriptors(desc_u8: torch.Tensor, valid: torch.Tensor, encodin
     (4, 2, D) for signed.
 
     Returns (a int8 (..., N, D), sums f32 (..., N), inv_norms f32 (..., N)
-    with 0 marking invalid rows, coef f32 (3,)).  The squared norms are sums
-    of integer squares below 2^24, exact in f32 in any order, and
-    ``vector_norm`` rounds their square root correctly (``torch.sqrt`` on the
-    CPU does not always): every output is bit-equal to the reference's.
+    with 0 marking invalid rows, coef f32 (3,)).  Where a row's squared norm
+    is below 2^24, it is a sum of integer squares that f32 holds exactly in
+    any order, and ``vector_norm`` rounds its square root correctly
+    (``torch.sqrt`` on the CPU does not always): every output is then
+    bit-equal to the reference's.  That holds for every row up to D = 256
+    (255^2 * 256 < 2^24).  At D = 384 it holds for real quantized
+    descriptors (a signed descriptor of unit norm has |u|^2 near 255^2) and
+    for uniform random bytes (|u|^2 near 255^2 * D / 3), but not for rows
+    near the largest norm, 255^2 * 384 = 2.5e7.
     """
     q = desc_u8.to(torch.int32)
     a = (q - 128).to(torch.int8)
@@ -89,16 +94,18 @@ def get_pair_matcher(use_pallas: bool | None = None):
     """``(d1, d2, v1, v2, max_ratio, max_distance, cross_check) -> (P, N)``,
     dispatched as the reference's matcher is.
 
-    ``use_pallas`` keeps the reference's knob.  None or True: descriptors of
-    the width the kernels are built for (``match_kernel.DIM``) go to the
+    ``use_pallas`` keeps the reference's knob.  None or True: descriptors
+    whose width is a multiple of 128 (``match_kernel.WIDTH_STEP``) go to the
     matching kernel, which takes its plain version on CPU tensors; other
     widths go to :func:`match_pairs_batched`, the reference's matmul matcher,
-    on either device.  False: always :func:`match_pairs_batched`."""
+    on either device.  The reference also asks N to be a multiple of 128, a
+    tiling need of its TPU kernel; the port's kernels mask ragged rows and
+    columns themselves.  False: always :func:`match_pairs_batched`."""
     if use_pallas is False:
         return match_pairs_batched
 
     def matcher(d1, d2, v1, v2, max_ratio=0.8, max_distance=0.7, cross_check=True):
-        if d1.shape[-1] != match_kernel.DIM:
+        if d1.shape[-1] % match_kernel.WIDTH_STEP:
             return match_pairs_batched(d1, d2, v1, v2, max_ratio, max_distance,
                                        cross_check)
         return match_kernel.match_pairs(
