@@ -13,7 +13,9 @@ Phases, one flushed line each with elapsed seconds:
    must multiply on the tensor cores (HGMMA) and load by TMA (UTMALDG); the
    fp32 matcher body's registers and spills (``-Xptxas -v``, no spill
    allowed) and its main loop's FFMA, shared loads and asynchronous copies
-   (LDGSTS or UTMALDG, one at least) are counted too;
+   (LDGSTS or UTMALDG, one at least) are counted too; so are the int8
+   matcher's (kernel 5): no spill, IGMMA or IMMA in its main loop, an
+   asynchronous copy in its body and no IDP4A;
 3. kernels: each of the five kernels against its plain PyTorch version on
    the card, at the paths' shapes, in the working dtypes (and kernels 1 and
    3 also in f32, on their SIMT body), the matchers also at descriptor
@@ -21,7 +23,10 @@ Phases, one flushed line each with elapsed seconds:
    against the same bounds (each must fail them), "last column wins"
    variants of the matchers' plain versions on inputs with ties (each must
    differ), and the float similarity summed in reverse order of d (it must
-   fail the bit-equality of kernels 2 and 4); ``get_pair_matcher`` on
+   fail the bit-equality of kernels 2 and 4); kernel 5 also with
+   coefficients that are not powers of two, beside its epilogue with alpha *
+   acc + beta * (s1 + s2) contracted into one FMA (it must differ);
+   ``get_pair_matcher`` on
    256-wide descriptors (kernel 2) and 200-wide ones (the matmul matcher);
 4. slice: the port's main path through ``Pipeline.run`` -- frozen DINOv2
    ViT-B/14 (random weights from a seed) on 8 synthetic 1190 x 1596 PNGs,
@@ -39,10 +44,13 @@ Phases, one flushed line each with elapsed seconds:
    uint8 descriptors (kernel 5);
 6. times: CUDA-event medians of each kernel, its plain version and one
    PyTorch library call computing the same function (kernels 1 and 3 also
-   in f32), the attention bound split into tensor-core, SFU (exp2) and byte
-   times, the bare fp32 ``torch.bmm`` beside kernels 2 and 4 with the SM
-   clock and power that nvidia-smi reads while kernel 2 runs back to back,
-   and the pipeline's extraction / matching rates on a second, warm run.
+   in f32), each kernel's mean over calls run back to back beside its
+   median (logged only), the attention bound split into
+   tensor-core, SFU (exp2) and byte times, kernel 5's epilogue floor (its
+   main loop's instructions per similarity from the SASS over the dispatch
+   and pipe rates), the bare fp32 ``torch.bmm`` beside kernels 2 and 4 with
+   the SM clock and power that nvidia-smi reads while kernel 2 runs back to
+   back, and the pipeline's extraction / matching rates on a second, warm run.
 
 Every path (the main one and each of 5a-5d) is driven with the kernels'
 launch counts set to 0 just before it and read just after; each kernel must
@@ -105,6 +113,11 @@ ATTN_ULPS = 4
 # Descriptor widths checked beside the main path's 128, each at (P, N, M):
 # N is ragged in both, M in the second.
 WIDE_SHAPES = {256: (3, 1000, 1024), 384: (3, 1000, 1000)}
+# Kernel 5's (alpha, beta, gamma) for the check that a contracted epilogue
+# fails: with the encodings' coefficients every operation before "* inv1"
+# is exact integer arithmetic below 2^24, so a contraction would change no
+# bit there; these make every rounding count.
+ODD_COEF = (0.7071068, 1.3717421, 0.5773503)
 # Patch tokens of a batch of images through 12 layers with kernel 1 vs its
 # plain version.  Each layer can flip activations by one bf16 ulp, and the
 # flips compound through the residual stream.  Bound the RMS of the
@@ -156,6 +169,32 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls run back to back
+    between one pair of CUDA events.  The host's work before each launch
+    (the wrapper's checks and allocations, a launcher's tensor maps)
+    overlaps the card's work of the call before, where ``cuda_ms`` counts
+    it; logged beside ``cuda_ms``, which the kernels line keeps."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn) -> dict:
+    """A kernel's ``ms`` (``cuda_ms``) and ``back_to_back_ms``."""
+    return {"ms": cuda_ms(fn, 10), "b2b_ms": back_to_back_ms(fn, 10)}
 
 
 def synthetic_images(seed: int):
@@ -312,13 +351,16 @@ def sass_phase():
                         None)
             if body is None and "match_topk2_kernel" in name:  # ILb1E: kColmax
                 body = "match_topk2_colmax" if "ILb1E" in name else "match_topk2"
+            if body is None and "match_topk2_int8_kernel" in name:  # ILi128E: D = 128
+                body = "match_topk2_int8" if "ILi128E" in name else "match_topk2_int8_runtime"
             if body:
                 bodies[body] = []
             continue
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*)", line)
         if body and m:
             bodies[body].append((int(m.group(1), 16), m.group(2)))
-    check(set(bodies) == {"hopper", "simt", "match_topk2_colmax", "match_topk2"},
+    check(set(bodies) == {"hopper", "simt", "match_topk2_colmax", "match_topk2",
+                          "match_topk2_int8", "match_topk2_int8_runtime"},
           f"attention and matcher bodies in the SASS: {sorted(bodies)}")
     counts = {b: sass_counts(x for _, x in ins) for b, ins in bodies.items()
               if b in ("hopper", "simt")}
@@ -330,7 +372,85 @@ def sass_phase():
         f"its main loop ({hex(lo)}-{hex(hi)}, {len(loop)} instructions) "
         f"{counts['hopper_main_loop']}; f32 body {counts['simt']}")
     counts["matcher"] = matcher_sass(bodies)
+    ptxas = ptxas_report("match_topk2_int8.cu")
+    for name in ("match_topk2_int8", "match_topk2_int8_runtime"):
+        info = next((v for k, v in ptxas.items() if "match_topk2_int8_kernel" in k
+                     and ("ILi128E" in k) == (name == "match_topk2_int8")), {})
+        counts[name] = int8_body_check(name, bodies[name], info)
+        c = counts[name]
+        log(f"sass: {name} body (ptxas -v): {info['registers']} registers, "
+            f"{info['spill_bytes']} spill bytes; opcodes {c['body']}; main loop "
+            f"({c['main_loop_range'][0]}-{c['main_loop_range'][1]}, "
+            f"{c['main_loop_range'][2]} instructions) {c['main_loop']}")
     return counts
+
+
+# Kernel 5 (csrc/match_topk2_int8.cu): opcodes counted in its bodies; its
+# main loop must multiply on the tensor cores (IGMMA or IMMA), its body
+# must receive tiles by an asynchronous copy (UTMALDG or LDGSTS), and no
+# IDP4A (the SIMT dot product it replaced) may be left.
+INT8_SASS_OPS = ("IGMMA", "IMMA", "IDP4A", "UTMALDG", "LDGSTS", "I2FP", "FADD", "FMUL",
+                 "FFMA", "FMNMX", "FSETP", "SEL", "IADD3", "LDS", "BAR")
+# Dispatch slots per SM and clock (4 schedulers x 32 lanes), and lanes per SM
+# and clock of the pipes the int8 epilogue uses (CUDA's throughput table for
+# compute capability 9.0): fp32 add / multiply; integer add, compare,
+# min / max and select.  __int2float_rn compiles to I2FP.F32.S32 on this
+# card, which the measured times show is not held to the multi-function
+# unit's I2F rate: it is counted with the ALU ops (an assumption; no table
+# lists it).
+DISPATCH_PER_SM_CLOCK = 128
+EPILOGUE_PIPES = {
+    "fp32": (128, ("FADD", "FMUL", "FFMA")),
+    "alu": (64, ("FMNMX", "FSETP", "FSEL", "SEL", "IADD3", "VIADD", "LOP3", "ISETP",
+                 "SHF", "MOV", "IMAD", "LEA", "PRMT", "I2FP")),
+}
+
+
+def opcode(text: str) -> str:
+    """The mnemonic of one SASS instruction, without predicate or
+    modifiers: '@!P0 FMNMX.FTZ R1, ...' -> 'FMNMX'."""
+    import re
+
+    m = re.match(r"\s*(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", text)
+    return m.group(1) if m else ""
+
+
+def int8_body_check(name: str, instructions, ptxas_info: dict) -> dict:
+    """Kernel 5's checks on one body, ``instructions`` as (address, text)
+    pairs of ``cuobjdump -sass``: ptxas reports 0 spill bytes, the main loop
+    (the innermost loop around an IGMMA or IMMA) exists, the body holds an
+    asynchronous copy and no IDP4A.  Returns the opcode counts of the body
+    and of its main loop, and the main loop's opcodes by mnemonic."""
+    from collections import Counter
+
+    check("registers" in ptxas_info and ptxas_info.get("spill_bytes") == 0,
+          f"{name} body: ptxas reports {ptxas_info} (0 spill bytes required)")
+    whole = sass_counts((x for _, x in instructions), INT8_SASS_OPS)
+    check(whole["IDP4A"] == 0, f"{name} body: {whole['IDP4A']} IDP4A left")
+    check(whole["UTMALDG"] + whole["LDGSTS"] > 0, f"{name} body: no asynchronous copy")
+    lo, hi, loop = main_loop(instructions, needs=(("IGMMA", "IMMA"),), body=f"{name} body")
+    return {**ptxas_info, "body": whole, "main_loop": sass_counts(loop, INT8_SASS_OPS),
+            "main_loop_range": [hex(lo), hex(hi), len(loop)],
+            "main_loop_opcodes": dict(Counter(opcode(x) for x in loop))}
+
+
+def epilogue_floor(loop_opcodes: dict, similarities: float, mhz: float,
+                   tile_k_steps: int = 128 // 32) -> dict:
+    """Kernel 5's epilogue floor from its D = 128 main loop: the loop's
+    instructions per similarity (a trip of ``t`` tiles is t x 64 similarities
+    a thread; a tile is ``tile_k_steps`` IGMMA k32 steps), times
+    ``similarities``, over the dispatch rate and over each pipe's rate at
+    ``mhz``; the floor is the largest of these times."""
+    mma = loop_opcodes.get("IGMMA", 0) + loop_opcodes.get("IMMA", 0)
+    per_thread = 64 * mma / tile_k_steps
+    per_sim = {"dispatch": sum(loop_opcodes.values()) / per_thread}
+    ms = {"dispatch": similarities * per_sim["dispatch"] / DISPATCH_PER_SM_CLOCK}
+    for pipe, (rate, ops) in EPILOGUE_PIPES.items():
+        per_sim[pipe] = sum(loop_opcodes.get(op, 0) for op in ops) / per_thread
+        ms[pipe] = similarities * per_sim[pipe] / rate
+    ms = {k: v / (SMS * mhz * 1e6) * 1e3 for k, v in ms.items()}
+    return {"per_similarity": per_sim, "ms": ms, "floor_ms": max(ms.values()),
+            "bound_by": max(ms, key=ms.get)}
 
 
 def matcher_sass(bodies: dict) -> dict:
@@ -621,14 +741,51 @@ def topk2_checks():
     return err
 
 
+def contracted_int8_plain(a1, a2, s1, s2, inv1, inv2, coef):
+    """Known-wrong kernel 5: its plain version with alpha * acc + beta * (s1
+    + s2) contracted into one fused multiply-add (computed in f64, rounded
+    once to f32), as nvcc would contract it without __fmul_rn / __fadd_rn."""
+    import torch
+
+    from vit_colmap_tpu_torch.kernels import match
+
+    P, N, _ = a1.shape
+    best, second, best_idx = match._row_results(P, N, a1.device)
+    for p in range(P):
+        f = (a1[p].double() @ a2[p].double().T).float()
+        bs = coef[1] * (s1[p][:, None] + s2[p][None, :])
+        dot = (coef[0].double() * f.double() + bs.double()).float() + coef[2]
+        sim = dot * inv1[p][:, None] * inv2[p][None, :]
+        sim = torch.where(inv2[p][None, :] > 0, sim, -2.0)
+        best[p], second[p], best_idx[p] = match._row_top2(sim)
+    return best, second, best_idx
+
+
 def int8_checks():
-    """Kernel 5 on random and duplicated-row uint8 inputs (signed)."""
+    """Kernel 5 on random and duplicated-row uint8 inputs (signed), and on
+    the random inputs with coefficients that are not powers of two, beside
+    its known-wrong contracted variant, which must differ there."""
+    import torch
+
     from vit_colmap_tpu_torch.kernels import match
 
     n = MAX_KEYPOINTS
     ops = int8_operands(*u8_inputs(PAIR_BATCH, n, n, seed=7))
     err = exact_check("match_topk2_int8", match.match_topk2_int8(*ops),
                       match.topk2_int8_plain(*ops), f"random {PAIR_BATCH}x{n}x{n}")
+    a1, a2, s1, s2, i1, i2, _ = ops
+    coef = torch.tensor(ODD_COEF, device=DEVICE)
+    odd = (a1, a2, s1, s2, i1, i2, coef)
+    out = match.match_topk2_int8(*odd)
+    label = f"random {PAIR_BATCH}x{n}x{n}, coef {coef.tolist()}"
+    err = max(err, exact_check("match_topk2_int8", out, match.topk2_int8_plain(*odd),
+                               label))
+    wrong = contracted_int8_plain(*odd)
+    n_diff = sum(int((a != b).sum()) for a, b in zip(out[:2], wrong[:2]))
+    log(f"kernels: known-wrong 'contracted alpha * acc + beta * (s1 + s2)' "
+        f"match_topk2_int8 {label}: {n_diff} best/second differ (must be > 0)")
+    if n_diff == 0:
+        POWERLESS.append(f"match_topk2_int8 {label} 'contracted FMA': bit-equal")
     ops = int8_operands(*u8_inputs(4, n, n, seed=8, ties=True))
     out = match.match_topk2_int8(*ops)
     err = max(err, exact_check("match_topk2_int8", out, match.topk2_int8_plain(*ops),
@@ -1050,7 +1207,7 @@ def matcher_paths(work: Path, extractor):
 
 
 def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
-                fixedmax_extractor, int8_ops, max_mhz: float):
+                fixedmax_extractor, int8_ops, max_mhz: float, int8_loop: dict):
     import torch
     import torch.nn.functional as F
 
@@ -1072,12 +1229,12 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10),
     }
     out["attention_qkv"] = {
-        "ms": cuda_ms(lambda: attention.attention_qkv(qkv, HEADS, 64**-0.5), 10),
+        **kernel_ms(lambda: attention.attention_qkv(qkv, HEADS, 64**-0.5)),
         "plain_ms": cuda_ms(lambda: attention.attention_qkv_plain(qkv, HEADS, 64**-0.5), 3),
         **attn_cost,
     }
     out["fixed_max_attention"] = {
-        "ms": cuda_ms(lambda: attention.fixed_max_attention(qh, kh, vh, 64**-0.5), 10),
+        **kernel_ms(lambda: attention.fixed_max_attention(qh, kh, vh, 64**-0.5)),
         "plain_ms": cuda_ms(
             lambda: attention.fixed_max_attention_plain(qh, kh, vh, 64**-0.5), 3),
         **attn_cost,
@@ -1121,7 +1278,7 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
         return top, col
 
     out["match_topk2_colmax"] = {
-        "ms": cuda_ms(lambda: match.match_topk2_colmax(d1, d2, v1, v2), 10),
+        **kernel_ms(lambda: match.match_topk2_colmax(d1, d2, v1, v2)),
         "plain_ms": cuda_ms(lambda: match.topk2_colmax_plain(d1, d2, v1, v2), 3),
         "library_ms": cuda_ms(library_match, 10),
         "flops": 2.0 * P * Nm * Mm * Dm,
@@ -1129,7 +1286,7 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
         "peak": PEAK_FP32_FLOPS,
     }
     out["match_topk2"] = {
-        "ms": cuda_ms(lambda: match.match_topk2(d1, d2, v2), 10),
+        **kernel_ms(lambda: match.match_topk2(d1, d2, v2)),
         "plain_ms": cuda_ms(lambda: match.topk2_plain(d1, d2, v2), 3),
         "library_ms": cuda_ms(library_topk2, 10),
         "flops": 2.0 * P * Nm * Mm * Dm,
@@ -1150,7 +1307,7 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
         return tops
 
     out["match_topk2_int8"] = {
-        "ms": cuda_ms(lambda: match.match_topk2_int8(*int8_ops), 10),
+        **kernel_ms(lambda: match.match_topk2_int8(*int8_ops)),
         "plain_ms": cuda_ms(lambda: match.topk2_int8_plain(*int8_ops), 3),
         "library_ms": cuda_ms(library_int8, 10),
         "flops": 2.0 * a1.shape[0] * a1.shape[1] * a2.shape[1] * a1.shape[2],
@@ -1158,6 +1315,10 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
         + 4 * (s1.numel() + s2.numel() + i1.numel() + i2.numel()) + 12
         + a1.shape[0] * a1.shape[1] * 12,
         "peak": PEAK_INT8_OPS,
+        # The epilogue's floor from the SASS of its main loop, at the card's
+        # maximum SM clock: the kernel's time cannot go below it either.
+        "epilogue": epilogue_floor(int8_loop, a1.shape[0] * a1.shape[1] * a2.shape[1],
+                                   max_mhz),
     }
 
     # Warm end-to-end rates: a second Pipeline.run on the same pipeline, and
@@ -1192,9 +1353,16 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
         t["bound_bytes_ms"] = t["bytes"] / PEAK_BYTES * 1e3
         bmm = f", bare fp32 bmm {bmm_ms:.3f} ms" if name in ("match_topk2_colmax",
                                                              "match_topk2") else ""
-        log(f"times: {name}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+        floor = ""
+        if "epilogue" in t:
+            e = t["epilogue"]
+            floor = (f", epilogue floor {e['floor_ms']:.3f} ms ({e['bound_by']}; ms by "
+                     f"{ {k: round(v, 4) for k, v in e['ms'].items()} }, instructions per "
+                     f"similarity { {k: round(v, 2) for k, v in e['per_similarity'].items()} })")
+        log(f"times: {name}: kernel {t['ms']:.3f} ms (back to back {t['b2b_ms']:.3f} ms), "
+            f"plain {t['plain_ms']:.3f} ms, "
             f"library {t['library_ms']:.3f} ms{bmm}, bound "
-            f"{max(t['bound_ops_ms'], t['bound_bytes_ms']):.3f} ms")
+            f"{max(t['bound_ops_ms'], t['bound_bytes_ms']):.3f} ms{floor}")
     # Kernels 2 and 4's share of their fp32 bound, at the published peak
     # (1,980 MHz, the card's maximum SM clock) and at the clock held.
     mhz = statistics.median(held["mhz"]) if held["mhz"] else float("nan")
@@ -1301,7 +1469,7 @@ def main() -> int:
         path_launches, _, int8_ops, int8_vs_float = matcher_paths(work, fixedmax_extractor)
         times, rates, split, f32_ms, matcher = times_phase(
             pipeline, work, work / "images", inputs_main, fixedmax_extractor, int8_ops,
-            max_mhz)
+            max_mhz, sass["match_topk2_int8"]["main_loop_opcodes"])
     check(not POWERLESS, "known-wrong kernels passed a check: " + "; ".join(POWERLESS))
 
     # name -> (source, TPU kernel it replaces, launches on its own path)

@@ -28,15 +28,33 @@ the card) on the same descriptors.  Variants:
 * ``mask_early``: each column tile's validity mask loaded at the tile's
   start, so that the loads land during the products, instead of in its
   epilogue;
-* ``int8_base`` / ``int8_runtime_dim``: kernel 5 (``match_topk2_int8``)
-  on the same pairs as uint8 descriptors, as it is (width 128 compiled in)
-  and with the width taken at run time, as every other width is.
+* kernel 5 (``match_topk2_int8``) on the same pairs as uint8 descriptors
+  (signed encoding), its time split: ``int8_base``, as it is;
+  ``int8_mma_only``, the epilogue replaced by a sum of the accumulators'
+  bits into the row state, and no wait on the column tables, which nothing
+  reads then (the products and the ring's copies alone);
+  ``int8_epilogue_only``, no products (the accumulators keep the values
+  they were given at the start, 0, which the compiler cannot see through):
+  the epilogue, the copies and the waits alone; ``int8_bias_trick``, acc
+  converted on the full-rate pipes as float(acc + BIAS_BITS as bits) -
+  BIAS instead of by I2F (exact for |acc| <= 2^22, as
+  ``tests/test_torch_match_variants.py`` checks; bit-equal here);
+  ``int8_stages2``, a ring of 2 K slices instead of 4; ``int8_runtime_dim``,
+  width 128 taken at run time, as every other width is.  Beside them
+  ``torch._int_mm`` per pair alone, the product's yardstick: it writes the
+  1.9 GB of int32 similarities that the kernel keeps on chip.
 
-``no_lds``, ``no_copy`` and ``no_barrier`` give wrong results on purpose;
-each says what the part it drops costs.
+``no_lds``, ``no_copy``, ``no_barrier``, ``int8_mma_only`` and
+``int8_epilogue_only`` give wrong results on purpose; each says what the
+part it drops or keeps costs.
 
-Then it runs kernel 2 back to back for about two seconds and samples the
-SM clock and the power draw with nvidia-smi (``chip_smoke.sustained``; the
+Each is timed two ways (``chip_smoke.cuda_ms``, the median of per-call
+CUDA-event timings, which count the wrapper's host work before each
+launch, and ``chip_smoke.back_to_back_ms``, the mean over calls run back
+to back, where that host work overlaps the card's).
+
+Then it runs kernels 2 and 5 back to back for about two seconds each and
+samples the SM clock and the power draw with nvidia-smi (``chip_smoke.sustained``; the
 timing helpers are chip_smoke's too).  It prints one JSON object last.
 Needs one CUDA GPU and nvcc.
 """
@@ -52,6 +70,11 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+# The exact integer-to-float conversion of int8_bias_trick: the f32 whose
+# bits are BIAS_BITS + acc is BIAS + acc for |acc| <= 2^22 (its ulp is 1 on
+# [2^23, 2^24]), so subtracting BIAS gives float(acc) exactly.
+BIAS_BITS = 0x4B400000
+BIAS = 12582912.0  # 1.5 * 2^23, the f32 of BIAS_BITS
 P, N, D = 28, 4096, 128
 
 CHECKSUM = '''
@@ -86,6 +109,21 @@ VARIANTS = {
         (COPY, "    if (k == 0) cols_valid = column_mask(v2, tile * kTile, col_in, m);\n"
          + COPY)]),
     "int8_base": ("match_topk2_int8.cu", []),
+    "int8_mma_only": ("match_topk2_int8.cu", [
+        ("            const float f = __int2float_rn(",
+         "            rb[h] = __fadd_rn(rb[h], __uint_as_float(acc[4 * c + 2 * h + e]));\n"
+         "            continue;\n"
+         "            const float f = __int2float_rn("),
+        ("        mbar_wait(empty_col(s), ((j / kColStages) & 1) ^ 1);\n", ""),
+        ("      mbar_wait(full_col(cs), (j / kColStages) & 1);\n", "")]),
+    "int8_epilogue_only": ("match_topk2_int8.cu", [
+        ("          wgmma_s8(acc, da + 2 * kk, db + 2 * kk, kk > 0 ? 1 : keep);", "")]),
+    "int8_bias_trick": ("match_topk2_int8.cu", [
+        ("__int2float_rn(static_cast<int>(acc[4 * c + 2 * h + e]))",
+         f"__fsub_rn(__uint_as_float(acc[4 * c + 2 * h + e] + {BIAS_BITS:#x}u), "
+         f"{BIAS:.1f}f)")]),
+    "int8_stages2": ("match_topk2_int8.cu", [("constexpr int kStages = 4;",
+                                              "constexpr int kStages = 2;")]),
     "int8_runtime_dim": ("match_topk2_int8.cu", [("launch<128>(", "launch<0>(")]),
 }
 
@@ -125,7 +163,7 @@ def main() -> int:
         print("needs a CUDA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from chip_smoke import cuda_ms, nvidia_smi, sustained
+    from chip_smoke import back_to_back_ms, cuda_ms, nvidia_smi, sustained
     from vit_colmap_tpu_torch.kernels import build, match
     from vit_colmap_tpu_torch.ops.matching import prepare_int8_descriptors
 
@@ -157,9 +195,15 @@ def main() -> int:
             "k2": lambda: match.match_topk2_colmax(d1, d2, v1, v2),
             "k4": lambda: match.match_topk2(d1, d2, v2),
         }
-        errors, times = {}, {"bmm": []}
+        errors, times, b2b = {}, {"bmm": []}, {}
+        def int_mm():  # the int8 products alone, one pair at a time
+            for p in range(P):
+                torch._int_mm(a1[p], a2[p].T)
+
+        times["int_mm"] = []
         for rnd in range(args.rounds):
             times["bmm"].append(cuda_ms(lambda: torch.bmm(d1, d2.transpose(1, 2)), 10))
+            times["int_mm"].append(cuda_ms(int_mm, 10))
             for name, lib in libs.items():
                 build.library = lambda lib=lib: lib  # this variant's launcher
                 if name.startswith("int8"):
@@ -169,6 +213,7 @@ def main() -> int:
                     runs, check, plain = kernels, "k4", ref
                 for k, fn in runs.items():
                     times.setdefault(f"{name} {k}", []).append(cuda_ms(fn, 10))
+                    b2b.setdefault(f"{name} {k}", []).append(back_to_back_ms(fn, 10))
                 if rnd == 0:
                     out = runs[check]()
                     errors[name] = {
@@ -177,17 +222,23 @@ def main() -> int:
                     }
         for name, t in times.items():
             err = f", vs plain {errors[name.split()[0]]}" if name.split()[0] in errors else ""
-            print(f"{name}: {' / '.join(f'{x:.3f}' for x in t)} ms{err}", flush=True)
+            both = f"; back to back {' / '.join(f'{x:.3f}' for x in b2b[name])}" \
+                if name in b2b else ""
+            print(f"{name}: {' / '.join(f'{x:.3f}' for x in t)}{both} ms{err}", flush=True)
 
-        build.library = lambda: libs["base"]
-        held = sustained(kernels["k2"])
-        print(f"sustained base kernel 2: SM clock {held['mhz']} MHz, "
-              f"power {held['watts']} W", flush=True)
+        held = {}
+        for variant, name, fn in (("base", "kernel 2", kernels["k2"]),
+                                  ("int8_base", "kernel 5",
+                                   lambda: match.match_topk2_int8(*ops))):
+            build.library = lambda lib=libs[variant]: lib
+            held[name] = sustained(fn)
+            print(f"sustained {variant} {name}: SM clock {held[name]['mhz']} MHz, "
+                  f"power {held[name]['watts']} W", flush=True)
 
     card = nvidia_smi("name,power.limit")
     print(card)
-    print(json.dumps({"card": card, "shape": [P, N, N, D], "ms": times, "errors": errors,
-                      "sustained": held}))
+    print(json.dumps({"card": card, "shape": [P, N, N, D], "ms": times, "b2b_ms": b2b,
+                      "errors": errors, "sustained": held}))
     return 0
 
 

@@ -210,12 +210,21 @@ def _u8_case(kind, device, P=3, N=1000, M=1024, D=128):
     return q1, q2.contiguous(), v1, v2
 
 
+# Kernel 5 also at D = 512 (four K slices of the ring a tile), 1,792 (the
+# widest its SIMT body launched) and 2,048 (its shared memory does not grow
+# with D).
+INT8_WIDTHS = WIDTHS + [pytest.param("random", 512, 1000, id="random-512-m1000"),
+                        pytest.param("ties", 1792, 1024, id="ties-1792"),
+                        pytest.param("random", 2048, 1000, id="random-2048-m1000")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind,dim,m", WIDTHS)
+@pytest.mark.parametrize("kind,dim,m", INT8_WIDTHS)
 @pytest.mark.parametrize("encoding", ["signed", "unsigned"])
 def test_int8_kernel_matches_plain(cuda_device, encoding, kind, dim, m):
-    """Uniform random bytes keep the squared norms below 2^24 at D = 384
-    (about 255^2 * D / 3), so the operands are exact."""
+    """Uniform random bytes keep the squared norms below 2^24 up to D = 512
+    (about 255^2 * D / 3), so the operands are exact there; the kernel and
+    its plain version take the same operands at every width."""
     q1, q2, v1, v2 = _u8_case(kind, cuda_device, M=m, D=dim)
     a1, s1, i1, coef = prepare_int8_descriptors(q1, v1, encoding)
     a2, s2, i2, _ = prepare_int8_descriptors(q2, v2, encoding)

@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kHeadDim = 64;  // largest head dim; smaller ones are zero-filled
@@ -242,6 +244,8 @@ attention_kernel(View q, View k, View v, float* __restrict__ out, long long ob,
 
 namespace hopper {
 
+using namespace sm90;
+
 constexpr int kBlockM = 128;  // q rows per block: two consumer warpgroups
 constexpr int kBlockN = 128;  // kv rows per ring tile
 constexpr int kStages = 4;    // depth of the k ring and of the v ring
@@ -257,101 +261,12 @@ constexpr int kSmemBytes = (1 + 2 * kStages) * kTileBytes + 2 * kOnesBytes +
 constexpr int kBarSched = 1;
 constexpr int kBarWarpgroup = 3;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity ``parity`` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One (64 dims x 128 tokens) box of a 4-D (d, N, H, B) tensor map into
-// shared memory; completion is counted in bytes on ``bar``.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int token, int head,
-                                         int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(token),
-      "r"(head), "r"(batch)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int count) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving register reads or writes across a wgmma
-// issue or wait (the tensor cores own these registers in between).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
 // Descriptor of a K-major operand without swizzle whose two 8 x 16-byte core
 // matrices of a k16 slice lie 128 bytes apart: the all-ones row-sum operand
 // (every slice reads the same 256 bytes).
 __device__ __forceinline__ uint64_t ones_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{128 >> 4} << 16) |
          (uint64_t{256 >> 4} << 32);
-}
-
-// Shared-memory matrix descriptor of a tile stored as 128-byte rows with the
-// 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B): 8-row groups 1024
-// bytes apart (stride byte offset), leading byte offset unused.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
-         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
 }
 
 // S (+)= Q' K^T for one k16 slice: m64n128k16, A and B K-major in shared
@@ -510,16 +425,18 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (threadIdx.x == 0) {
       mbar_expect_tx(full_q, kTileBytes);
-      tma_load(smem_addr(q_tile), &tq, full_q, q0, h, b);
+      tma_load_4d(smem_addr(q_tile), &tq, full_q, 0, q0, h, b);
       for (int j = 0; j < tiles; ++j) {
         const int s = j % kStages;
         const uint32_t parity = ((j / kStages) & 1) ^ 1;
         mbar_wait(empty_k(s), parity);
         mbar_expect_tx(full_k(s), kTileBytes);
-        tma_load(smem_addr(k_ring + s * kTileBytes), &tk, full_k(s), j * kBlockN, h, b);
+        tma_load_4d(smem_addr(k_ring + s * kTileBytes), &tk, full_k(s), 0, j * kBlockN,
+                    h, b);
         mbar_wait(empty_v(s), parity);
         mbar_expect_tx(full_v(s), kTileBytes);
-        tma_load(smem_addr(v_ring + s * kTileBytes), &tv, full_v(s), j * kBlockN, h, b);
+        tma_load_4d(smem_addr(v_ring + s * kTileBytes), &tv, full_v(s), 0, j * kBlockN,
+                    h, b);
       }
     }
   } else {
@@ -696,38 +613,12 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
 
 }  // namespace hopper
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library links no libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // The 4-D (d, N, H, B) bf16 tensor map of one view with element strides
 // s = (batch, head, token): box (64, 128, 1, 1), 128-byte swizzle, zero fill
 // out of bounds.  kernels/attention.tma_layout states the same geometry.
 bool make_map(CUtensorMap* map, const void* base, int batch, int heads, int n,
               int d, const long long* s) {
-  EncodeTiled encode = encode_tiled();
+  sm90::EncodeTiled encode = sm90::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)heads,
                               (cuuint64_t)batch};

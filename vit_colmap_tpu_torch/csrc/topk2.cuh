@@ -21,23 +21,26 @@ namespace topk2 {
 
 constexpr float kInvalid = -2.f;  // similarity of a masked column; the seed
 
-__device__ __forceinline__ void push(float s, int col, float& rb, float& rs,
-                                     int& ri) {
-  if (s > rb) {
-    rs = rb;
-    rb = s;
-    ri = col;
-  } else if (s > rs) {
-    rs = s;
-  }
-}
-
-// push without branches, for similarities that are never -0 (an FMA chain
-// from +0 gives +0 for an exact zero), so that max picks no zero's sign:
-// the same state as push.
+// The update of a state by the similarity s of column col, without
+// branches: the same state as
+//   if (s > rb) { rs = rb; rb = s; ri = col; } else if (s > rs) { rs = s; }
+// for similarities that are never -0 (an FMA chain from +0 gives +0 for an
+// exact zero), so that max picks no zero's sign.
 __device__ __forceinline__ void push_max(float s, int col, float& rb,
                                          float& rs, int& ri) {
   rs = fmaxf(rs, fminf(s, rb));
+  ri = s > rb ? col : ri;
+  rb = fmaxf(rb, s);
+}
+
+// push_max that also skips a NaN: s = NaN (a masked column) leaves the
+// state as it is, as s = -2 does, since fmaxf and fminf return their other
+// operand for a NaN and NaN > rb is false.  For any other s (no -0, as for
+// push_max) the state is push_max's: rs = min(rb, max(rs, s)) is the second
+// of {rb, rs, s} whenever rs <= rb.
+__device__ __forceinline__ void push_skip_nan(float s, int col, float& rb,
+                                              float& rs, int& ri) {
+  rs = fminf(rb, fmaxf(rs, s));
   ri = s > rb ? col : ri;
   rb = fmaxf(rb, s);
 }
@@ -49,31 +52,6 @@ __device__ __forceinline__ void merge(float& rb, float& rs, int& ri, float ob,
   if (ob > rb || (ob == rb && oi < ri)) ri = oi;
   rb = fmaxf(rb, ob);
   rs = ns;
-}
-
-// Merge the 16 per-thread states of each of a thread's 4 rows (rows
-// r0 + 4 * ty + i, held by the 16 lanes of a half-warp) and store them;
-// lane tx == 0 writes.
-__device__ __forceinline__ void merge_store(float (&rb)[4], float (&rs)[4],
-                                            int (&ri)[4], int r0, int ty,
-                                            int tx, int n, float* best,
-                                            float* second, int* best_idx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, rb[i], off);
-      const float os = __shfl_xor_sync(0xffffffffu, rs[i], off);
-      const int oi = __shfl_xor_sync(0xffffffffu, ri[i], off);
-      merge(rb[i], rs[i], ri[i], ob, os, oi);
-    }
-    const int row = r0 + 4 * ty + i;
-    if (tx == 0 && row < n) {
-      best[row] = rb[i];
-      second[row] = rs[i];
-      best_idx[row] = ri[i];
-    }
-  }
 }
 
 }  // namespace topk2

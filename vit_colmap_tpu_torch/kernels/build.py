@@ -2,10 +2,11 @@
 
 Every ``csrc/*.cu`` source exposes its kernels behind ``extern "C"``
 launchers that return a CUDA error code, so the shared library needs no
-PyTorch headers and no ``libcuda`` (the attention launcher reaches the
-driver's ``cuTensorMapEncodeTiled`` through the runtime's entry-point
-query): :mod:`ctypes` binds it.  The library is built at first use in each
-process, into ``_build/`` beside the package (listed in ``.gitignore``):
+PyTorch headers and no ``libcuda`` (the attention and int8 matcher
+launchers reach ``cuTensorMapEncodeTiled`` through the runtime's
+entry-point query): :mod:`ctypes` binds it.  The library is
+built at first use in each process, into ``_build/`` beside the package
+(listed in ``.gitignore``):
 one ``nvcc -c`` per source, all started together, then one link; the build
 time is printed, and each source's compiler output (``-Xptxas -v``:
 registers, shared memory and spills of every kernel) is kept beside the
