@@ -31,10 +31,12 @@ Phases, one flushed line each with elapsed seconds:
 4. slice: the port's main path through ``Pipeline.run`` -- frozen DINOv2
    ViT-B/14 (random weights from a seed) on 8 synthetic 1190 x 1596 PNGs,
    4096 keypoints, COLMAP database, exhaustive matching of the 28 pairs in
-   one batch, verification and reconstruction skipped -- then checks of the
-   database and of kernels 1 and 2 against the plain path, and of the
-   saliency keypoints against the CPU's at PyTorch's default precision
-   flags (the script sets none);
+   one batch, two-view verification, reconstruction skipped -- then checks
+   of the database (every consecutive pair, one 16 px shift apart,
+   verified as PLANAR_OR_PANORAMIC with inliers that follow the shift) and
+   of kernels 1 and 2 against the plain path, and of the saliency
+   keypoints against the CPU's at PyTorch's default precision flags (the
+   script sets none);
 5. paths: the slice's other entry points on the same images and weights:
    (a) ``ViTExtractor(attn_impl="fixedmax")`` extraction into a database
    (kernel 3), (b) ``match_exhaustive`` of that database with
@@ -42,6 +44,12 @@ Phases, one flushed line each with elapsed seconds:
    (``fused_cross=False``) against the fused one, (d)
    ``prepare_int8_descriptors`` + ``match_pairs_int8`` on the database's
    uint8 descriptors (kernel 5);
+   then calibrated verification, which the main path's uncalibrated pairs
+   leave to arbitration: 63 synthetic pairs through
+   ``estimate_two_view_batched`` on the card, some of its lanes on the CPU
+   with the same uniforms, the card's results against the ground truth,
+   a known-wrong Sampson error that must miss the bars, and the launches
+   of one 5-point chunk (``torch.profiler``);
 6. times: CUDA-event medians of each kernel, its plain version and one
    PyTorch library call computing the same function (kernels 1 and 3 also
    in f32), each kernel's mean over calls run back to back beside its
@@ -50,11 +58,13 @@ Phases, one flushed line each with elapsed seconds:
    main loop's instructions per similarity from the SASS over the dispatch
    and pipe rates), the bare fp32 ``torch.bmm`` beside kernels 2 and 4 with
    the SM clock and power that nvidia-smi reads while kernel 2 runs back to
-   back, and the pipeline's extraction / matching rates on a second, warm run.
+   back, and the pipeline's extraction / matching / verification times on
+   a second, warm run.
 
-Every path (the main one and each of 5a-5d) is driven with the kernels'
-launch counts set to 0 just before it and read just after; each kernel must
-have launched on its path, and the kernels it replaces must not have.
+Every path (the main one, each of 5a-5d and calibrated verification) is
+driven with the kernels' launch counts set to 0 just before it and read
+just after; each kernel must have launched on its path, and the kernels it
+replaces must not have (verification launches none of the five).
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
@@ -90,6 +100,8 @@ HEADS = 12
 BACKBONE_LAYERS = 12 * 2 * math.ceil(NUM_IMAGES / IMAGE_BATCH)
 MATCH_BATCHES = math.ceil(NUM_PAIRS / PAIR_BATCH)
 TOKENS = 1 + (HEIGHT // 14) * (WIDTH // 14)  # 9,691
+# Consecutive synthetic images differ by 2 px at 1/8 scale along x.
+SHIFT_PX = 16.0
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside them,
 # HBM bandwidth.  Bounds are stated against these at the card's power limit.
@@ -135,6 +147,33 @@ Q_GAIN = 3.0
 # Known-wrong variants of kernels 1 and 3 whose readings passed a bound they
 # must fail: collected, and raised at the end so that one run shows them all.
 POWERLESS: list[str] = []
+
+# Calibrated verification phase: scripts/ab_five_point.py's problems (640 x
+# 480 images, focal 600 px, 512 correspondences, 0.6 px noise on the
+# inliers, uniform outliers) at three inlier ratios, CAL_PAIRS_PER_RATIO
+# pairs each, verified in one batch with both cameras calibrated.
+CAL_RATIOS = (0.9, 0.5, 0.3)
+CAL_PAIRS_PER_RATIO = 21
+CAL_POINTS = 512
+CAL_ITERS = 1024
+# Lanes of each ratio that the CPU also verifies, on the card's uniforms.
+CAL_CPU_LANES_PER_RATIO = 3
+# The card and the CPU fit the same samples with other roundings, which can
+# move points at the threshold or change which of two near-equal hypotheses
+# a chunk keeps: each lane's config must agree, and its inlier count within
+# CAL_BOUNDARY_POINTS.
+CAL_BOUNDARY_POINTS = 8
+# Ground-truth bars per inlier ratio: (least mean inlier recall, least
+# CALIBRATED rate, largest median rotation error in degrees over the
+# verified pairs).  Set below the JAX package's readings on the same
+# problems, on the CPU:
+#     python3 scripts/torch_verify_bars.py
+# (recall 0.02 lower, CALIBRATED rate 0.15 lower, rotation error twice the
+# reading plus 0.2 deg).  Its readings: recall 0.9995 / 0.9994 / 0.9685,
+# CALIBRATED rate 1.0 / 1.0 / 0.857, median rotation error 0.370 / 0.622 /
+# 0.972 deg at ratios 0.9 / 0.5 / 0.3.
+CAL_BARS = {0.9: (0.979, 0.85, 0.94), 0.5: (0.979, 0.85, 1.44), 0.3: (0.948, 0.70, 2.14)}
+
 
 
 def log(msg: str) -> None:
@@ -213,6 +252,115 @@ def synthetic_images(seed: int):
         yield up[0].permute(1, 2, 0).clamp(0, 255).to(torch.uint8).numpy()
 
 
+def make_problem(rng, n_points, inlier_ratio, noise_px, w, h, focal):
+    """A calibrated two-view pair (scripts/ab_five_point.py's generator):
+    ``n_points`` pixel correspondences, round(n * ratio) of them projections
+    of a rigid scene (+ noise), the rest uniform outliers, shuffled.
+    Returns (pts1, pts2, R, inlier mask, K)."""
+    import numpy as np
+
+    aa = rng.standard_normal(3) * 0.25
+    th = float(np.linalg.norm(aa))
+    k = aa / max(th, 1e-9)
+    K_ = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(th) * K_ + (1 - np.cos(th)) * K_ @ K_
+    t = rng.standard_normal(3)
+    t /= np.linalg.norm(t)
+    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1.0]])
+    n_inl = int(round(n_points * inlier_ratio))
+    pts1 = np.zeros((n_points, 2), np.float32)
+    pts2 = np.zeros((n_points, 2), np.float32)
+    got = 0
+    while got < n_inl:  # 3D points seen inside both images
+        X = np.stack([rng.uniform(-2, 2, 4 * n_inl), rng.uniform(-1.5, 1.5, 4 * n_inl),
+                      rng.uniform(3, 9, 4 * n_inl)], axis=1)
+        p1 = (K @ (X.T / X[:, 2])).T[:, :2]
+        Xc = (R @ X.T).T + t
+        p2 = (K @ (Xc.T / np.maximum(Xc[:, 2], 1e-6))).T[:, :2]
+        ok = ((Xc[:, 2] > 0.1)
+              & (p1[:, 0] >= 0) & (p1[:, 0] < w) & (p1[:, 1] >= 0) & (p1[:, 1] < h)
+              & (p2[:, 0] >= 0) & (p2[:, 0] < w) & (p2[:, 1] >= 0) & (p2[:, 1] < h))
+        take = min(n_inl - got, int(ok.sum()))
+        pts1[got : got + take] = p1[ok][:take]
+        pts2[got : got + take] = p2[ok][:take]
+        got += take
+    pts1[:n_inl] += rng.standard_normal((n_inl, 2)) * noise_px
+    pts2[:n_inl] += rng.standard_normal((n_inl, 2)) * noise_px
+    n_out = n_points - n_inl
+    pts1[n_inl:] = np.stack([rng.uniform(0, w, n_out), rng.uniform(0, h, n_out)], axis=1)
+    pts2[n_inl:] = np.stack([rng.uniform(0, w, n_out), rng.uniform(0, h, n_out)], axis=1)
+    perm = rng.permutation(n_points)
+    inl_mask = np.zeros(n_points, bool)
+    inl_mask[:n_inl] = True
+    return pts1[perm], pts2[perm], R.astype(np.float32), inl_mask[perm], K
+
+
+def calibrated_problems(seed: int = 0) -> dict:
+    """The calibrated phase's batch as numpy arrays: pts1, pts2 (P, N, 2),
+    K (P, 3, 3), R (P, 3, 3), inlier (P, N) and ratio (P,), the lanes of
+    each ratio in a row."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    probs, ratios = [], []
+    for ratio in CAL_RATIOS:
+        for _ in range(CAL_PAIRS_PER_RATIO):
+            probs.append(make_problem(rng, CAL_POINTS, ratio, 0.6, 640, 480, 600.0))
+            ratios.append(ratio)
+    pts1, pts2, R, inl, K = (np.stack(a) for a in zip(*probs))
+    return {"pts1": pts1, "pts2": pts2, "K": K.astype(np.float32), "R": R,
+            "inlier": inl, "ratio": np.array(ratios)}
+
+
+def rot_err_deg(R_gt, qvec) -> float:
+    """Angle in degrees between R_gt and the rotation of quaternion qvec."""
+    import numpy as np
+
+    w, x, y, z = qvec
+    R = np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+    c = (np.trace(R_gt.T @ R) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def calibrated_quality(problems: dict, config, num_inliers, inlier_mask, qvec,
+                       min_num_inliers: int = 15) -> dict:
+    """Per inlier ratio: mean recall of the true inliers, the CALIBRATED
+    (config 2) rate and the median rotation error of the verified pairs."""
+    import numpy as np
+
+    out = {}
+    for ratio in CAL_RATIOS:
+        lanes = np.nonzero(problems["ratio"] == ratio)[0]
+        gt = problems["inlier"][lanes]
+        recall = (inlier_mask[lanes] & gt).sum(1) / gt.sum(1)
+        verified = [i for i in lanes if num_inliers[i] >= min_num_inliers]
+        rot = [rot_err_deg(problems["R"][i], qvec[i]) for i in verified]
+        out[ratio] = {"recall": float(recall.mean()),
+                      "calibrated_rate": float((config[lanes] == 2).mean()),
+                      "rot_err_med_deg": float(np.median(rot)) if rot else float("inf")}
+    return out
+
+
+def meets_bars(quality: dict) -> list[str]:
+    """The bars of CAL_BARS that ``quality`` misses, as text."""
+    missed = []
+    for ratio, (recall, calibrated, rot) in CAL_BARS.items():
+        q = quality[ratio]
+        if q["recall"] < recall:
+            missed.append(f"ratio {ratio}: recall {q['recall']:.4f} < {recall}")
+        if q["calibrated_rate"] < calibrated:
+            missed.append(f"ratio {ratio}: CALIBRATED rate {q['calibrated_rate']:.3f} "
+                          f"< {calibrated}")
+        if not q["rot_err_med_deg"] <= rot:
+            missed.append(f"ratio {ratio}: median rotation error "
+                          f"{q['rot_err_med_deg']:.3f} deg > {rot}")
+    return missed
+
+
 def random_weights(path: Path, seed: int) -> None:
     """A seeded random ViT-B/14 state dict.  Three departures from the flax
     init keep the checks meaningful: LayerScale at 0.1 (1e-5 would make every
@@ -263,7 +411,10 @@ def device_phase():
 def build_phase():
     from vit_colmap_tpu_torch.kernels import build
 
+    # Always one fresh build (the library is otherwise cached under a hash
+    # of the sources, flags and nvcc), which library() then loads.
     t = time.perf_counter()
+    build.build(build.cache_dir())
     build.library()
     seconds = time.perf_counter() - t
     sources = sorted(p.name for p in build.CSRC_DIR.glob("*.cu"))
@@ -341,7 +492,7 @@ def sass_phase():
     from vit_colmap_tpu_torch.kernels import build
 
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build.BUILD_DIR / build.LIBRARY_NAME)],
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.cache_dir() / build.LIBRARY_NAME)],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     bodies, body = {}, None
     for line in sass.splitlines():
@@ -878,7 +1029,6 @@ def slice_phase(work: Path):
     config.extractor.max_keypoints = MAX_KEYPOINTS
     config.extractor.image_batch = IMAGE_BATCH
     config.matching.pair_batch = PAIR_BATCH
-    config.matching.do_verification = False
     config.do_reconstruction = False
     pipeline = Pipeline(config, device=DEVICE)
 
@@ -930,7 +1080,50 @@ def check_database(db_path: Path):
     log(f"slice: database {n_img} images, {n_kp} keypoints, {n_pairs} matched "
         f"pairs, {n_matches} matches; consecutive pairs {per_shift}")
     return {"images": n_img, "keypoints": n_kp, "matched_pairs": n_pairs,
-            "matches": n_matches}
+            "matches": n_matches, **check_geometries(db_path)}
+
+
+def check_geometries(db_path: Path) -> dict:
+    """The main path's two-view geometries.  Consecutive images differ by
+    one shift of SHIFT_PX along x (synthetic_images), a pure image
+    translation: every consecutive pair must verify, as
+    PLANAR_OR_PANORAMIC (a homography explains it), and its inliers must
+    follow the shift: the median inlier's departure from it within the
+    RANSAC threshold, the 90th percentile's within twice the threshold.
+    Not every inlier: the random backbone's features sit on the 14 px patch
+    grid, so matched keypoints move by 14 px give or take the sub-cell
+    refinement; the inliers of F (which wins the inlier set unless H has
+    more) are only held to the horizontal epipolar lines; and np.roll's
+    wrap-around adds a few matches across the image."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.database import TWO_VIEW_CONFIG, ColmapDatabase
+    from vit_colmap_tpu_torch.utils.config import MatchingConfig
+
+    tol = MatchingConfig().ransac_max_error_px
+    with ColmapDatabase.open_database(db_path) as db:
+        ids = sorted(db.read_images())
+        n_verified = db.num_verified_pairs
+        pairs = []
+        for a, b in zip(ids, ids[1:]):
+            g = db.read_two_view_geometry(a, b)
+            check(g is not None, f"consecutive pair {(a, b)} did not verify")
+            inl = g["inlier_matches"]
+            move = db.read_keypoints(b)[inl[:, 1], :2] - db.read_keypoints(a)[inl[:, 0], :2]
+            off = np.linalg.norm(move - [SHIFT_PX, 0.0], axis=1)
+            q50, q90 = (float(np.quantile(off, q)) if len(off) else np.inf for q in (0.5, 0.9))
+            pairs.append((len(inl), round(q50, 2), round(q90, 2)))
+            check(g["config"] == TWO_VIEW_CONFIG["PLANAR_OR_PANORAMIC"],
+                  f"pair {(a, b)}: config {g['config']}, not PLANAR_OR_PANORAMIC")
+            check(len(inl) >= MatchingConfig().min_num_inliers and q50 <= tol
+                  and q90 <= 2 * tol,
+                  f"pair {(a, b)}: {len(inl)} inliers depart from the {SHIFT_PX} px "
+                  f"shift by {q50:.2f} px (median) and {q90:.2f} px (90th percentile); "
+                  f"threshold {tol} px")
+    log(f"slice: two_view_geometries {n_verified} pairs; every consecutive pair "
+        f"PLANAR_OR_PANORAMIC, (inliers, median and 90th-percentile departure in px "
+        f"from the {SHIFT_PX} px shift) {pairs}")
+    return {"verified_pairs": n_verified, "consecutive": pairs}
 
 
 def check_tokens(extractor, img_dir: Path, kernel: str, plain, wrong: dict,
@@ -1206,6 +1399,140 @@ def matcher_paths(work: Path, extractor):
     return launches, inputs, ops, vs_float
 
 
+def chunk_launches(pts1, pts2, mask, u, thresh) -> dict:
+    """CUDA launches of one 5-point chunk (ops/ransac.multi_chunk: sample,
+    solve, score, pick) on every lane, from torch.profiler: kernels the
+    card ran, and the runtime's launch calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_colmap_tpu_torch.ops import ransac
+    from vit_colmap_tpu_torch.sfm import geometry
+    from vit_colmap_tpu_torch.sfm.five_point import fit_essential_5pt
+
+    num_valid = mask.sum(-1, dtype=torch.int32)
+
+    def chunk():
+        ransac.multi_chunk(fit_essential_5pt, geometry.sampson_error, pts1, pts2, mask,
+                           num_valid, u, 5, thresh)
+
+    chunk()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk()
+        sync()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    calls = sum(e.count for e in prof.key_averages()
+                if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                             "cuLaunchKernelEx"))
+    t = time.perf_counter()
+    for _ in range(3):
+        chunk()
+    sync()
+    return {"kernels": kernels, "launch_calls": calls,
+            "chunk_ms": (time.perf_counter() - t) / 3 * 1e3}
+
+
+def verification_phase() -> dict:
+    """Calibrated two-view verification, which the main path (no camera
+    prior) leaves to F and H: CAL_RATIOS x CAL_PAIRS_PER_RATIO synthetic
+    pairs through estimate_two_view_batched on the card, some lanes also on
+    the CPU with the same uniforms (configs equal, inlier counts within
+    CAL_BOUNDARY_POINTS), the card's results against the ground truth
+    (CAL_BARS), and the Sampson error with the views swapped, which must
+    miss a bar.  Counts set to 0 before: no kernel of the five runs."""
+    from collections import Counter
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.ops import ransac
+    from vit_colmap_tpu_torch.sfm import geometry
+
+    plain_sampson = geometry.sampson_error
+
+    def swapped_sampson(F, pts1, pts2):  # known-wrong: the views swapped
+        return plain_sampson(F, pts2, pts1)
+
+    prob = calibrated_problems(seed=0)
+    P = len(prob["ratio"])
+    kw = dict(iters=CAL_ITERS, five_point=True, five_point_chunk=16)
+    host = [torch.from_numpy(a) for a in (prob["pts1"], prob["pts2"],
+                                          np.ones(prob["pts1"].shape[:2], bool),
+                                          prob["K"], prob["K"], np.ones(P, bool))]
+    uniforms = ransac.draw_uniforms(P, torch.Generator().manual_seed(7), **kw)
+    card_args = [a.to(DEVICE) for a in host]
+    card_u = ransac.RansacUniforms(*(x.to(DEVICE) for x in uniforms))
+
+    def run(args, u, chunks=None):
+        res = ransac.estimate_two_view_batched(*args, u, chunks=chunks, **kw)
+        return {k: v.cpu().numpy() for k, v in res._asdict().items()}
+
+    sync()
+    counts.clear()
+    chunks = Counter()
+    t = time.perf_counter()
+    card = run(card_args, card_u, chunks)
+    card_s = time.perf_counter() - t
+    expect_launches(dict(counts), {}, "calibrated verification")
+    quality = calibrated_quality(prob, card["config"], card["num_inliers"],
+                                 card["inlier_mask"], card["qvec"])
+    missed = meets_bars(quality)
+    check(not missed, "calibrated verification on the card: " + "; ".join(missed))
+    log(f"verify: {P} calibrated pairs x {CAL_POINTS} points on the card in "
+        f"{card_s:.2f} s, chunks {dict(chunks)}; against the ground truth per inlier "
+        f"ratio {quality} (bars {CAL_BARS})")
+
+    # The same uniforms on the CPU, for CAL_CPU_LANES_PER_RATIO lanes of
+    # each ratio (a lane's result does not depend on its batchmates).
+    lanes = np.concatenate([np.nonzero(prob["ratio"] == r)[0][:CAL_CPU_LANES_PER_RATIO]
+                            for r in CAL_RATIOS])
+    sub = torch.from_numpy(lanes)
+    t = time.perf_counter()
+    cpu = run([a[sub] for a in host], ransac.RansacUniforms(*(x[sub] for x in uniforms)))
+    cpu_s = time.perf_counter() - t
+    same_config = cpu["config"] == card["config"][lanes]
+    diff = np.abs(cpu["num_inliers"].astype(int) - card["num_inliers"][lanes].astype(int))
+    flags = (cpu["inlier_mask"] != card["inlier_mask"][lanes]).sum(1)
+    check(same_config.all() and diff.max() <= CAL_BOUNDARY_POINTS,
+          f"card vs CPU on lanes {lanes.tolist()}: configs {card['config'][lanes].tolist()} "
+          f"vs {cpu['config'].tolist()}, inlier counts differ by {diff.tolist()} "
+          f"(bound {CAL_BOUNDARY_POINTS})")
+    log(f"verify: card vs CPU on {len(lanes)} lanes (CPU {cpu_s:.1f} s): configs equal, "
+        f"inlier counts differ by at most {int(diff.max())} (bound "
+        f"{CAL_BOUNDARY_POINTS}), inlier flags differ in {flags.tolist()}")
+
+    with mock.patch.object(geometry, "sampson_error", swapped_sampson):
+        wrong = run(card_args, card_u)
+    wrong_quality = calibrated_quality(prob, wrong["config"], wrong["num_inliers"],
+                                       wrong["inlier_mask"], wrong["qvec"])
+    wrong_missed = meets_bars(wrong_quality)
+    log(f"verify: known-wrong 'Sampson error with the views swapped' misses "
+        f"{len(wrong_missed)} bars: {wrong_missed[:3]}")
+    if not wrong_missed:
+        POWERLESS.append(f"calibrated verification 'swapped Sampson': {wrong_quality}")
+
+    # The chunk on normalized coordinates and the 4 px threshold, as
+    # estimate_two_view_batched runs it (every camera: focal 600, centre
+    # (320, 240)).
+    K = card_args[3]
+    p1n, p2n = ((pts - K[:, None, :2, 2]) / K[:, None, 0, 0, None]
+                for pts in card_args[:2])
+    thresh = 16.0 / K[:, 0, 0] ** 2
+    try:
+        per_chunk = chunk_launches(p1n, p2n, card_args[2], card_u.e5[:, 0], thresh)
+    except Exception as exc:  # the profiler is untried on that machine
+        per_chunk = {"not measured": repr(exc)}
+    log(f"verify: one 5-point chunk ({P} lanes x 16 samples x 20 candidates): "
+        f"{per_chunk}")
+    return {"card_s": card_s, "chunks": dict(chunks), "quality": quality,
+            "cpu_s": cpu_s, "max_count_diff": int(diff.max()),
+            "five_point_chunk": per_chunk, "wrong_missed": len(wrong_missed)}
+
+
 def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
                 fixedmax_extractor, int8_ops, max_mhz: float, int8_loop: dict):
     import torch
@@ -1332,10 +1659,13 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
     fixedmax_s = time.perf_counter() - t
     rates = {
         "extract_img_per_s": NUM_IMAGES / report["extract_s"],
-        "match_pairs_per_s": NUM_PAIRS / report["match_verify_s"],
-        "extract_match_pairs_per_s": NUM_PAIRS / (report["extract_s"] + report["match_verify_s"]),
+        "match_pairs_per_s": NUM_PAIRS / report["match_s"],
+        "extract_match_pairs_per_s": NUM_PAIRS / (report["extract_s"] + report["match_s"]),
         "extract_s": report["extract_s"],
-        "match_s": report["match_verify_s"],
+        "match_s": report["match_s"],
+        "verify_s": report["verify_s"],
+        "verify_chunks": report["verify_chunks"],
+        "match_verify_s": report["match_verify_s"],
         "fixedmax_extract_img_per_s": NUM_IMAGES / fixedmax_s,
         "fixedmax_extract_s": fixedmax_s,
     }
@@ -1467,6 +1797,7 @@ def main() -> int:
         inputs_main, _ = check_matches(work / "run1.db", plain_fused, "slice")
         fixedmax_extractor, fixedmax_launches = fixedmax_path(work)
         path_launches, _, int8_ops, int8_vs_float = matcher_paths(work, fixedmax_extractor)
+        verification = verification_phase()
         times, rates, split, f32_ms, matcher = times_phase(
             pipeline, work, work / "images", inputs_main, fixedmax_extractor, int8_ops,
             max_mhz, sass["match_topk2_int8"]["main_loop_opcodes"])
@@ -1506,7 +1837,9 @@ def main() -> int:
             "bound_by": "operations" if t["bound_ops_ms"] >= t["bound_bytes_ms"] else "bytes",
             "library_ms": t["library_ms"],
         })
-    log(f"done: build {build_s:.1f} s, database {db_counts}, rates {rates}, "
+    log(f"done: build {build_s:.1f} s, database {db_counts}, main-path verification "
+        f"{report['verify_s']} s (chunks {report['verify_chunks']}), calibrated "
+        f"verification {verification}, rates {rates}, "
         f"int8 rows differing from the float matcher {int8_vs_float}, saliency "
         f"{saliency}, attention bound split {split}, f32 attention ms {f32_ms}, "
         f"matcher times {matcher}, SASS {sass}")

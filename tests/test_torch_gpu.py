@@ -286,3 +286,78 @@ def test_saliency_keypoints_match_cpu_at_default_flags(cuda_device):
     assert torch.backends.cudnn.allow_tf32
     assert [len(k) for k in gpu] == [len(k) for k in cpu]
     assert gpu == cpu
+
+
+def _calibrated_batch(device, pairs=6, points=256, seed=21):
+    """Calibrated pairs (K: focal 600, 640 x 480) at inlier ratios 0.9, 0.5
+    and 0.3 in turn, with uniform outliers, as (inputs on ``device``)."""
+    import math
+
+    g = torch.Generator().manual_seed(seed)
+    p1s, p2s = [], []
+    for b in range(pairs):
+        n_in = int(points * (0.9, 0.5, 0.3)[b % 3])
+        axis = torch.randn(3, generator=g)
+        angle = 0.2 * torch.rand(1, generator=g).item()
+        k = axis / axis.norm()
+        S = torch.tensor([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        R = torch.eye(3) + math.sin(angle) * S + (1 - math.cos(angle)) * S @ S
+        t = torch.tensor([1.0, 0.0, 0.0]) + 0.2 * torch.randn(3, generator=g)
+        X = torch.stack([torch.rand(n_in, generator=g) * 2 - 1,
+                         torch.rand(n_in, generator=g) * 1.5 - 0.75,
+                         torch.rand(n_in, generator=g) * 4 + 4], dim=1)
+        x1 = X[:, :2] / X[:, 2:]
+        Xc = X @ R.T + t
+        x2 = Xc[:, :2] / Xc[:, 2:]
+        noise = 0.6 / 600 * torch.randn(2, n_in, 2, generator=g)
+        out = torch.rand(2, points - n_in, 2, generator=g) * torch.tensor([640.0, 480.0])
+        p1s.append(torch.cat([(x1 + noise[0]) * 600 + torch.tensor([320.0, 240.0]), out[0]]))
+        p2s.append(torch.cat([(x2 + noise[1]) * 600 + torch.tensor([320.0, 240.0]), out[1]]))
+    K = torch.tensor([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]]).expand(pairs, 3, 3)
+    args = (torch.stack(p1s), torch.stack(p2s), torch.ones(pairs, points, dtype=torch.bool),
+            K.contiguous(), K.contiguous(), torch.ones(pairs, dtype=torch.bool))
+    return [a.to(device) for a in args]
+
+
+@pytest.mark.gpu
+def test_verification_on_cuda_equals_cpu(cuda_device):
+    """Two-view verification on the card and on the CPU with the same
+    uniforms: equal configs, inlier counts within chip_smoke.py's bound
+    (8 points at the threshold or a near-tie between hypotheses)."""
+    from vit_colmap_tpu_torch.ops import ransac
+
+    kw = dict(iters=1024, five_point=True, five_point_chunk=16)
+    cpu_args = _calibrated_batch("cpu")
+    u = ransac.draw_uniforms(len(cpu_args[0]), torch.Generator().manual_seed(5), **kw)
+    cpu = ransac.estimate_two_view_batched(*cpu_args, u, **kw)
+    card = ransac.estimate_two_view_batched(
+        *(a.to(cuda_device) for a in cpu_args),
+        ransac.RansacUniforms(*(x.to(cuda_device) for x in u)), **kw)
+    assert torch.equal(card.config.cpu(), cpu.config)
+    assert (card.num_inliers.cpu() - cpu.num_inliers).abs().max().item() <= 8
+    assert (cpu.config == 2).all()  # CALIBRATED: E wins on every lane
+
+
+@pytest.mark.gpu
+def test_verification_ignores_global_tf32(cuda_device):
+    """A calibrated batch with ``allow_tf32`` set globally: the fits run in
+    full f32 (the same results as with the flag off) and the caller's
+    setting is back afterwards."""
+    from vit_colmap_tpu_torch.ops import ransac
+
+    kw = dict(iters=256, five_point=True, five_point_chunk=16)
+    args = _calibrated_batch(cuda_device, pairs=3)
+    u = ransac.draw_uniforms(3, torch.Generator().manual_seed(6), device=cuda_device, **kw)
+    previous = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = ransac.estimate_two_view_batched(*args, u, **kw)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = ransac.estimate_two_view_batched(*args, u, **kw)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+    for field in ("config", "num_inliers", "inlier_mask"):
+        assert torch.equal(getattr(on, field), getattr(off, field)), field
+    for field in ("F", "E", "H", "qvec", "tvec"):
+        assert (getattr(on, field) - getattr(off, field)).abs().max().item() <= 1e-6, field

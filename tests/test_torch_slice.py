@@ -166,15 +166,29 @@ def test_pipeline_cli_runs_slice_on_cpu(tmp_path, tiny_backbone, images):
         assert d.num_images == 3 and d.num_keypoints > 0 and d.num_matches > 0
 
 
-@pytest.mark.parametrize("skip", [(), ("verification",), ("reconstruction",)])
+@pytest.mark.parametrize("skip", [(), ("verification",)])
 def test_unported_stages_raise(tmp_path, images, skip):
+    """Reconstruction is not ported: the pipeline raises before any stage
+    runs, with verification on or skipped."""
     cfg = Config()
     cfg.matching.do_verification = "verification" not in skip
-    cfg.do_reconstruction = "reconstruction" not in skip
+    cfg.do_reconstruction = True
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Pipeline(cfg, device="cpu").run(images, tmp_path / "o", tmp_path / "d.db")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        match_exhaustive(tmp_path / "d.db", MatchingConfig(), device="cpu")
+    assert not (tmp_path / "d.db").exists()
+
+
+def test_pipeline_verifies_when_only_reconstruction_is_skipped(tmp_path, images):
+    """The default MatchingConfig verifies: with reconstruction skipped the
+    pipeline runs through verification and writes two-view geometries (the
+    dummy extractor's identical grids: every pair verifies)."""
+    cfg = Config()
+    cfg.extractor.extractor_type = "dummy"
+    cfg.do_reconstruction = False
+    assert cfg.matching.do_verification
+    Pipeline(cfg, device="cpu").run(images, tmp_path / "o", tmp_path / "d.db")
+    with ColmapDatabase.open_database(tmp_path / "d.db") as db:
+        assert db.num_matched_pairs == 3 and db.num_verified_pairs == 3
 
 
 def test_cuda_is_the_default_device(monkeypatch):

@@ -1,5 +1,5 @@
 """Device resolution for the port's entry points, and exact f32
-convolutions.
+convolutions and matmuls.
 
 ``device=None`` means ``"cuda"``: the port runs on the card unless the
 caller asks for the CPU, where every kernel wrapper takes its plain
@@ -40,3 +40,20 @@ def exact_f32_convolutions() -> Iterator[None]:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = previous
+
+
+@contextlib.contextmanager
+def exact_f32_matmuls() -> Iterator[None]:
+    """cuBLAS f32 matmuls in full f32 (no TF32) for the duration of the
+    block, and the caller's setting back afterwards.
+
+    Two-view verification's fits (``ops/ransac.py``) are f32 like the
+    reference's; a caller's ``torch.backends.cuda.matmul.allow_tf32 =
+    True`` (or ``torch.set_float32_matmul_precision("high")``) would
+    otherwise run their batched products with 10 mantissa bits."""
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous

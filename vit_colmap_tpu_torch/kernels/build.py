@@ -5,18 +5,20 @@ launchers that return a CUDA error code, so the shared library needs no
 PyTorch headers and no ``libcuda`` (the attention and int8 matcher
 launchers reach ``cuTensorMapEncodeTiled`` through the runtime's
 entry-point query): :mod:`ctypes` binds it.  The library is
-built at first use in each process, into ``_build/`` beside the package
-(listed in ``.gitignore``):
-one ``nvcc -c`` per source, all started together, then one link; the build
-time is printed, and each source's compiler output (``-Xptxas -v``:
-registers, shared memory and spills of every kernel) is kept beside the
-library as ``<source>.nvcc.log``.
+built at first use, into ``_build/<key>/`` beside the package (listed in
+``.gitignore``), where ``<key>`` hashes the sources, ``NVCC_FLAGS`` and
+``nvcc --version``: a later process with the same three loads it instead
+of building again.  A build is one ``nvcc -c`` per source, all started
+together, then one link; the build time is printed, and each source's
+compiler output (``-Xptxas -v``: registers, shared memory and spills of
+every kernel) is kept beside the library as ``<source>.nvcc.log``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import os
 import shutil
 import subprocess
@@ -74,12 +76,33 @@ def _finish(proc: subprocess.Popen, cmd: list[str]) -> str:
     return output
 
 
-def log_path(source: str, out_dir: Path = BUILD_DIR) -> Path:
+def nvcc_version(nvcc: str) -> str:
+    return subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def cache_key(csrc_dir: Path, flags: list[str], version: str) -> str:
+    """Hash of every source and header under ``csrc_dir``, the flags and
+    the compiler's version text."""
+    h = hashlib.sha256()
+    for src in sorted(csrc_dir.iterdir()):
+        if src.suffix in (".cu", ".cuh"):
+            h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    h.update("\0".join(flags).encode() + b"\0" + version.encode())
+    return h.hexdigest()[:16]
+
+
+def cache_dir() -> Path:
+    """The build directory of these sources, flags and compiler."""
+    return BUILD_DIR / cache_key(CSRC_DIR, NVCC_FLAGS, nvcc_version(find_nvcc()))
+
+
+def log_path(source: str, out_dir: Path | None = None) -> Path:
     """Where :func:`build` keeps ``csrc/<source>``'s compiler output."""
-    return out_dir / f"{Path(source).stem}.nvcc.log"
+    return (out_dir or cache_dir()) / f"{Path(source).stem}.nvcc.log"
 
 
-def build(out_dir: Path = BUILD_DIR) -> Path:
+def build(out_dir: Path) -> Path:
     """Compile every ``csrc/*.cu`` (one ``nvcc`` each, in parallel) and link
     them into one shared library; returns its path."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
@@ -115,10 +138,21 @@ def build(out_dir: Path = BUILD_DIR) -> Path:
     return target
 
 
+def library_path() -> Path:
+    """The library of these sources, flags and compiler: the one a process
+    built before, or a new build."""
+    out_dir = cache_dir()
+    target = out_dir / LIBRARY_NAME
+    if target.exists():
+        print(f"[vit_colmap_tpu_torch] loading the cached build {target}", flush=True)
+        return target
+    return build(out_dir)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The kernel library, built once per process and bound with ctypes."""
-    lib = ctypes.CDLL(str(build()))
+    """The kernel library, bound with ctypes once per process."""
+    lib = ctypes.CDLL(str(library_path()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -1,11 +1,12 @@
 """Pipeline orchestration + CLI.
 
 Counterpart of ``vit_colmap_tpu/pipeline/run_pipeline.py``:
-``Pipeline(config).run(image_dir, output_dir, db_path)`` extracts features
-into a COLMAP database and matches every pair, with the same flags and the
-same per-stage report.  Ported so far: the ``vit`` extractor and matching.
-Verification and reconstruction are not ported yet and must be skipped
-(``--skip-verification --skip-reconstruction``).
+``Pipeline(config).run(image_dir, output_dir, db_path, dataset, scene,
+results_dir)`` extracts features into a COLMAP database, matches and
+verifies every pair, and exports the metrics, with the same flags and the
+same per-stage report.  Ported so far: the ``vit`` and ``dummy``
+extractors, matching and geometric verification.  Reconstruction is not
+ported yet and must be skipped (``--skip-reconstruction``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import Optional
 from vit_colmap_tpu_torch.database import ColmapDatabase
 from vit_colmap_tpu_torch.device import resolve_device
 from vit_colmap_tpu_torch.utils.config import Config
+from vit_colmap_tpu_torch.utils.export import export_metrics
+from vit_colmap_tpu_torch.utils.metrics import MetricsExtractor, MetricsResult
 
 logger = logging.getLogger(__name__)
 
@@ -33,24 +36,26 @@ class Pipeline:
 
     def _check_ported(self) -> None:
         c = self.config
-        if c.extractor.extractor_type != "vit":
+        if c.extractor.extractor_type not in ("vit", "dummy"):
             raise NotImplementedError(
                 f"extractor {c.extractor.extractor_type!r} is not ported yet "
-                "(only 'vit'); see ROADMAP.md"
+                "(only 'vit' and 'dummy'); see ROADMAP.md"
             )
         if c.do_reconstruction:
             raise NotImplementedError(
                 NOT_PORTED.format("reconstruction", "--skip-reconstruction")
             )
-        if c.do_matching and c.matching.do_verification:
-            raise NotImplementedError(
-                NOT_PORTED.format("geometric verification", "--skip-verification")
-            )
 
     def _make_extractor(self):
         ecfg = self.config.extractor
         key = tuple(sorted((k, str(v)) for k, v in vars(ecfg).items()))
-        if key not in self._extractors:
+        if key in self._extractors:
+            return self._extractors[key]
+        if ecfg.extractor_type == "dummy":
+            from vit_colmap_tpu_torch.features.dummy_extractor import DummyExtractor
+
+            self._extractors[key] = DummyExtractor(step=32, device=self.device)
+        else:
             from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
 
             self._extractors[key] = ViTExtractor(
@@ -75,8 +80,6 @@ class Pipeline:
         results_dir: Optional[Path] = None,
     ) -> Optional[dict]:
         self._check_ported()
-        if dataset and scene and results_dir:
-            raise NotImplementedError("metrics export is not ported yet")
         image_dir, output_dir, db_path = Path(image_dir), Path(output_dir), Path(db_path)
         output_dir.mkdir(parents=True, exist_ok=True)
         db_path.parent.mkdir(parents=True, exist_ok=True)
@@ -100,28 +103,38 @@ class Pipeline:
         )
 
         t_match = 0.0
+        stats = None
         if self.config.do_matching:
             from vit_colmap_tpu_torch.pipeline.match import match_exhaustive
 
-            # ViT descriptors are stored with the signed uint8 encoding.
-            self.config.matching.descriptor_encoding = "signed"
+            if self.config.extractor.extractor_type == "vit":
+                # ViT descriptors are stored with the signed uint8 encoding.
+                self.config.matching.descriptor_encoding = "signed"
             t1 = time.perf_counter()
-            match_exhaustive(
+            stats = match_exhaustive(
                 db_path,
                 self.config.matching,
-                device_descriptors=extractor.device_cache,
+                device_descriptors=getattr(extractor, "device_cache", None),
                 device=self.device,
             )
             t_match = time.perf_counter() - t1
 
         self._print_summary(db_path, t_extract, t_match)
-        return {
+        if dataset and scene and results_dir:
+            self.extract_and_export_metrics(db_path, output_dir, dataset, scene,
+                                            results_dir)
+        report = {
             "num_images": num_images,
             "extract_s": round(t_extract, 3),
             "match_verify_s": round(t_match, 3),
             "reconstruction_s": 0.0,
             "total_s": round(t_extract + t_match, 3),
         }
+        if stats is not None:  # the split of the match+verify stage
+            report.update(match_s=round(stats.match_seconds, 3),
+                          verify_s=round(stats.verify_seconds, 3),
+                          verify_chunks=dict(stats.verify_chunks))
+        return report
 
     def _print_summary(self, db_path: Path, t_extract: float, t_match: float) -> None:
         with ColmapDatabase.open_database(db_path) as db:
@@ -135,7 +148,38 @@ class Pipeline:
                 "  [2] match+verify  %.2fs — %d matched pairs, %d verified, %d raw matches",
                 t_match, db.num_matched_pairs, db.num_verified_pairs, db.num_matches,
             )
-            logger.info("=" * 60)
+        m = MetricsExtractor(db_path, db_path.parent).extract_matching_metrics(
+            self.config.reconstruction.min_num_matches
+        )
+        logger.info(
+            "      inlier ratio %.3f | verification rate %.1f%% | "
+            "pairs >= %d inliers: %d | config dist %s",
+            m.inlier_ratio, m.verification_rate,
+            self.config.reconstruction.min_num_matches, m.pairs_above_threshold,
+            m.config_distribution,
+        )
+        logger.info("=" * 60)
+
+    def extract_and_export_metrics(
+        self,
+        db_path: Path,
+        output_dir: Path,
+        dataset: str,
+        scene: str,
+        results_dir: Path,
+    ) -> MetricsResult:
+        """Feature and matching metrics of the database, written as
+        ``{results_dir}/{dataset}/{scene}/{extractor}.json`` and appended to
+        ``{results_dir}/summary.csv`` (no reconstruction metrics: the
+        mapper is not ported yet)."""
+        result = MetricsExtractor(db_path, output_dir).extract_all_metrics(
+            dataset=dataset,
+            scene=scene,
+            extractor_type=self.config.extractor.extractor_type,
+            config=self.config.to_dict(),
+        )
+        export_metrics(result, results_dir)
+        return result
 
 
 def main(argv: Optional[list[str]] = None) -> None:

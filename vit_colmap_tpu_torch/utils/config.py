@@ -1,9 +1,9 @@
 """Pipeline configuration: the port's own copy of ``vit_colmap_tpu/utils/
 config.py``, with the same dataclasses, fields and defaults, so a config
 tree and its CLI flags mean the same thing in both packages.  Fields that
-drive code the port has not ported yet (verification, reconstruction, the
-TPU wire formats) are kept so that the two trees stay interchangeable; the
-code that reads them raises where the port has no counterpart.
+drive code the port has not ported yet (reconstruction, the TPU wire
+formats) are kept so that the two trees stay interchangeable; the code that
+reads them raises where the port has no counterpart.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ class MatchingConfig:
     pair_batch: int = 16  # image pairs matched per batch
     use_pallas: Optional[bool] = None  # None/True: the kernel; False: not ported
     shard_descriptors: bool = False
-    # Geometric verification (not ported yet: see ROADMAP.md)
+    # Geometric verification (ops/ransac.py)
     do_verification: bool = True
     ransac_max_error_px: float = 4.0
     ransac_iters: int = 1024
@@ -71,6 +71,9 @@ class MatchingConfig:
     essential_solver: str = "5pt"
     verify_pair_batch: int = 64
     five_point_chunk: int = 16
+    # Accepted for the reference's config tree and without effect here: the
+    # reference pre-compiles its verification programs while extraction
+    # runs; the port runs eagerly and has nothing to compile.
     verification_prewarm: bool = True
 
 
