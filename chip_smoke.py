@@ -31,7 +31,9 @@ Phases, one flushed line each with elapsed seconds:
 4. slice: the port's main path through ``Pipeline.run`` -- frozen DINOv2
    ViT-B/14 (random weights from a seed) on 8 synthetic 1190 x 1596 PNGs,
    4096 keypoints, COLMAP database, exhaustive matching of the 28 pairs in
-   one batch, two-view verification, reconstruction skipped -- then checks
+   one batch, two-view verification, incremental reconstruction (timed and
+   logged, no quality bar: the images are shifted copies of one texture)
+   -- then checks
    of the database (every consecutive pair, one 16 px shift apart,
    verified as PLANAR_OR_PANORAMIC with inliers that follow the shift) and
    of kernels 1 and 2 against the plain path, and of the saliency
@@ -50,6 +52,14 @@ Phases, one flushed line each with elapsed seconds:
    with the same uniforms, the card's results against the ground truth,
    a known-wrong Sampson error that must miss the bars, and the launches
    of one 5-point chunk (``torch.profiler``);
+   then the mapper at the reference's 50-view scale: the correspondence
+   form of the rendered 50-view scene (3,000 points on its three planes) as
+   a verified database through ``incremental_mapping`` on the card, held to
+   MAPPER_BARS against the ground truth, a known-wrong BA that must miss
+   them, and the launches of one LM iteration of a global BA call; and
+   the 12-view scene of
+   ``tests/test_sfm_scale.py`` on the card twice and on the CPU once with
+   the same PnP uniforms (card against CPU, and card run against card run);
 6. times: CUDA-event medians of each kernel, its plain version and one
    PyTorch library call computing the same function (kernels 1 and 3 also
    in f32), each kernel's mean over calls run back to back beside its
@@ -58,13 +68,14 @@ Phases, one flushed line each with elapsed seconds:
    main loop's instructions per similarity from the SASS over the dispatch
    and pipe rates), the bare fp32 ``torch.bmm`` beside kernels 2 and 4 with
    the SM clock and power that nvidia-smi reads while kernel 2 runs back to
-   back, and the pipeline's extraction / matching / verification times on
-   a second, warm run.
+   back, and the pipeline's extraction / matching / verification /
+   reconstruction times on a second, warm run.
 
-Every path (the main one, each of 5a-5d and calibrated verification) is
-driven with the kernels' launch counts set to 0 just before it and read
-just after; each kernel must have launched on its path, and the kernels it
-replaces must not have (verification launches none of the five).
+Every path (the main one, each of 5a-5d, calibrated verification and the
+mapper) is driven with the kernels' launch counts set to 0 just before it
+and read just after; each kernel must have launched on its path, and the
+kernels it replaces must not have (verification and the mapper launch none
+of the five).
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
@@ -173,6 +184,56 @@ CAL_BOUNDARY_POINTS = 8
 # CALIBRATED rate 1.0 / 1.0 / 0.857, median rotation error 0.370 / 0.622 /
 # 0.972 deg at ratios 0.9 / 0.5 / 0.3.
 CAL_BARS = {0.9: (0.979, 0.85, 0.94), 0.5: (0.979, 0.85, 1.44), 0.3: (0.948, 0.70, 2.14)}
+
+# Mapper phase: the correspondence form of the JAX package's 50-view
+# rendered scene (vit_colmap_tpu/dataloader/synthetic_benchmark.py:
+# render_multiview_scene, the scene of scripts/bench_reconstruction.py
+# --images 50): 50 cameras on a 0.35 rad arc, C = (2 sin a, 0.04 i,
+# 5 - 5 cos a), 640 x 480, focal 600 px, looking at its three planes (a far
+# backdrop and two slanted near planes, corners below).  MAPPER_POINTS points
+# sampled on the planes by area; a view keeps a point when it projects into
+# the image in front of the camera and no nearer plane hides it, then drops
+# MAPPER_DROPOUT of them at random and adds MAPPER_NOISE_PX Gaussian noise;
+# every pair of views sharing MAPPER_MIN_SHARED points is written as a
+# verified CALIBRATED pair with those matches.
+MAPPER_VIEWS = 50
+MAPPER_POINTS = 3000
+MAPPER_SIZE = (640, 480)
+MAPPER_FOCAL = 600.0
+MAPPER_ARC = 0.35
+MAPPER_DROPOUT = 0.25
+MAPPER_NOISE_PX = 0.4
+MAPPER_MIN_SHARED = 20
+ARC_PLANES = (
+    ((-3.2, -2.4, 6.5), (3.2, -2.4, 6.5), (3.2, 2.4, 6.5), (-3.2, 2.4, 6.5)),
+    ((-2.2, -1.5, 5.4), (0.2, -1.4, 4.6), (0.2, 1.4, 4.6), (-2.2, 1.5, 5.4)),
+    ((0.3, -1.3, 4.4), (2.3, -1.5, 5.2), (2.3, 1.5, 5.2), (0.3, 1.3, 4.4)),
+)
+# Bars of the mapper phase against the ground truth: every view registered,
+# at least MAPPER_BARS["points_share"] of the scene points seen by two views
+# in the model, mean reprojection error and mean track length, and the
+# poses through sfm/align.pose_errors_vs_gt (rotation in degrees, camera
+# centre relative to the extent of the ground-truth centres).
+MAPPER_BARS = {"registered": MAPPER_VIEWS, "points_share": 0.9, "reproj_px": 1.0,
+               "track_length": 4.0, "rot_mean_deg": 0.1, "rot_max_deg": 0.3,
+               "center_rel": 0.01}
+# Bound on the BA Jacobian's rows on the card against central differences
+# of its residuals in float64 (ba_jacobian_error): the largest row error
+# ||J - J_fd|| / ||J_fd||.  f32 rounding gives about 1e-6 on this scene;
+# the Jacobian of a perturbation on SO(3) is off by about half the camera's
+# rotation angle in its rotation columns (up to 0.17 rad on the arc).
+MAPPER_JACOBIAN_ERR = 1e-3
+# Card against CPU: tests/test_sfm_scale.py's scene (12 views on a 0.55 rad
+# arc, 800 points, 25% dropout, 0.4 px noise) with its configuration, run on
+# the card and on the CPU with the same PnP uniforms (each mapper draws them
+# on a CPU generator seeded 0): the same registered images, point counts
+# within SCALE_POINTS_SHARE, rotations within SCALE_ROT_DEG degrees of each
+# other and camera centres within SCALE_CENTER_REL of the scene's extent.
+SCALE_VIEWS = 12
+SCALE_POINTS = 800
+SCALE_POINTS_SHARE = 0.02
+SCALE_ROT_DEG = 0.05
+SCALE_CENTER_REL = 1e-3
 
 
 
@@ -1029,7 +1090,6 @@ def slice_phase(work: Path):
     config.extractor.max_keypoints = MAX_KEYPOINTS
     config.extractor.image_batch = IMAGE_BATCH
     config.matching.pair_batch = PAIR_BATCH
-    config.do_reconstruction = False
     pipeline = Pipeline(config, device=DEVICE)
 
     sync()
@@ -1040,9 +1100,29 @@ def slice_phase(work: Path):
     wall = time.perf_counter() - t
     launches = dict(counts)
     log(f"slice: Pipeline.run in {wall:.1f} s, report {report}, launches {launches}")
+    # No quality bar here: the 8 images are horizontal shifts of one random
+    # texture seen by a random backbone (the mapper phase holds the mapper
+    # to the ground truth).
+    check(report["reconstruction_s"] > 0, "Pipeline.run skipped reconstruction")
+    log(f"slice: reconstruction (no quality bar: shifted copies of one texture) "
+        f"{report['reconstruction_s']} s, {report.get('registered_images', 0)} registered "
+        f"images, {report.get('points3d', 0)} points, {len(pipeline.reconstructions)} models")
     expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS,
                                "match_topk2_colmax": MATCH_BATCHES}, "main path")
     return pipeline, report, launches
+
+
+def verified_pairs(db_path: Path) -> dict:
+    """pair -> (config, inlier matches as bytes) of a database."""
+    from vit_colmap_tpu_torch.database import ColmapDatabase
+
+    with ColmapDatabase.open_database(db_path) as db:
+        return {k: (g["config"], g["inlier_matches"].tobytes())
+                for k, g in db.read_all_two_view_geometries().items()}
+
+
+def model_sizes(recs: dict) -> list:
+    return [(len(r.images), len(r.points3D)) for r in recs.values()]
 
 
 def expect_launches(launches: dict, expected: dict, path: str) -> None:
@@ -1522,15 +1602,460 @@ def verification_phase() -> dict:
     p1n, p2n = ((pts - K[:, None, :2, 2]) / K[:, None, 0, 0, None]
                 for pts in card_args[:2])
     thresh = 16.0 / K[:, 0, 0] ** 2
-    try:
-        per_chunk = chunk_launches(p1n, p2n, card_args[2], card_u.e5[:, 0], thresh)
-    except Exception as exc:  # the profiler is untried on that machine
-        per_chunk = {"not measured": repr(exc)}
+    per_chunk = chunk_launches(p1n, p2n, card_args[2], card_u.e5[:, 0], thresh)
     log(f"verify: one 5-point chunk ({P} lanes x 16 samples x 20 candidates): "
         f"{per_chunk}")
     return {"card_s": card_s, "chunks": dict(chunks), "quality": quality,
             "cpu_s": cpu_s, "max_count_diff": int(diff.max()),
             "five_point_chunk": per_chunk, "wrong_missed": len(wrong_missed)}
+
+
+def arc_scene(n_views: int = MAPPER_VIEWS, n_points: int = MAPPER_POINTS, seed: int = 0):
+    """The mapper phase's scene: ground-truth cameras [(R, t)], K, and per
+    view the indices of the points it keeps with their noisy pixels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w, h = MAPPER_SIZE
+    K = np.array([[MAPPER_FOCAL, 0, w / 2], [0, MAPPER_FOCAL, h / 2], [0, 0, 1]])
+    planes = [np.array(c, np.float64) for c in ARC_PLANES]
+    area = np.array([np.linalg.norm(np.cross(c[1] - c[0], c[3] - c[0])) for c in planes])
+    which = rng.choice(len(planes), n_points, p=area / area.sum())
+    a, b = rng.random((2, n_points, 1))
+    c = np.stack(planes)[which]  # (n, 4, 3)
+    X = ((1 - a) * (1 - b) * c[:, 0] + a * (1 - b) * c[:, 1] + a * b * c[:, 2]
+         + (1 - a) * b * c[:, 3])
+    cams, views = [], []
+    for i in range(n_views):
+        ang = (i - (n_views - 1) / 2) * (MAPPER_ARC / max(n_views - 1, 1))
+        R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                      [-np.sin(ang), 0, np.cos(ang)]])
+        C = np.array([2.0 * np.sin(ang), 0.04 * i, 5.0 - 5.0 * np.cos(ang)])
+        t = -R @ C
+        cams.append((R, t))
+        Xc = X @ R.T + t
+        xn = Xc[:, :2] / Xc[:, 2:]
+        uv = xn * MAPPER_FOCAL + [w / 2, h / 2]
+        keep = ((Xc[:, 2] > 0.1) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0)
+                & (uv[:, 1] < h))
+        for k, corners in enumerate(planes):  # hidden behind a nearer plane?
+            cc = corners @ R.T + t
+            q = cc[:, :2] / cc[:, 2:]
+            edges = np.roll(q, -1, axis=0) - q
+            rel = xn[:, None, :] - q[None]
+            cross = edges[None, :, 0] * rel[..., 1] - edges[None, :, 1] * rel[..., 0]
+            inside = (cross > 0).all(1) | (cross < 0).all(1)
+            normal = np.cross(cc[1] - cc[0], cc[3] - cc[0])
+            ray = np.concatenate([xn, np.ones((n_points, 1))], axis=1)
+            depth = (normal @ cc[0]) / (ray @ normal)  # the plane's z on each ray
+            keep &= ~(inside & (which != k) & (depth > 0) & (depth < Xc[:, 2] - 1e-6))
+        keep &= rng.random(n_points) > MAPPER_DROPOUT
+        idx = np.nonzero(keep)[0]
+        views.append((idx, uv[idx] + MAPPER_NOISE_PX * rng.standard_normal((len(idx), 2))))
+    return cams, K, views
+
+
+def write_views_db(db_path: Path, K, size, views, min_shared: int) -> dict:
+    """Views' keypoints and the verified pairs they share (CALIBRATED, the
+    shared points as matches) as a COLMAP database; returns counts."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.database import TWO_VIEW_CONFIG, ColmapDatabase
+
+    db = ColmapDatabase(db_path)
+    cid = db.add_pinhole_camera(size[0], size[1], K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+    ids = [db.add_image(f"view_{i:03d}.png", cid) for i in range(len(views))]
+    local = []
+    for iid, (idx, uv) in zip(ids, views):
+        db.add_keypoints(iid, uv.astype(np.float32))
+        local.append({int(g): k for k, g in enumerate(idx)})
+    pairs = matches = 0
+    for a in range(len(views)):
+        for b in range(a + 1, len(views)):
+            shared = np.intersect1d(views[a][0], views[b][0])
+            if len(shared) < min_shared:
+                continue
+            m = np.array([[local[a][int(g)], local[b][int(g)]] for g in shared], np.uint32)
+            db.add_matches(ids[a], ids[b], m)
+            db.add_two_view_geometry(ids[a], ids[b], m,
+                                     config=TWO_VIEW_CONFIG["CALIBRATED"])
+            pairs += 1
+            matches += len(m)
+    db.commit()
+    db.close()
+    seen = np.bincount(np.concatenate([idx for idx, _ in views]))
+    return {"pairs": pairs, "matches": matches, "points_in_two_views": int((seen >= 2).sum()),
+            "observations": int(seen.sum())}
+
+
+def gt_by_name(cams) -> dict:
+    return {f"view_{i:03d}.png": (R, t) for i, (R, t) in enumerate(cams)}
+
+
+def as_f64(rec):
+    """The model with float64 quaternions, so that the oracle's rotation
+    angles are not limited by an f32 trace (about 0.02 degrees)."""
+    import copy
+
+    import numpy as np
+
+    out = copy.copy(rec)
+    out.images = {iid: copy.copy(im) for iid, im in rec.images.items()}
+    for im in out.images.values():
+        im.qvec = np.asarray(im.qvec, np.float64)
+    return out
+
+
+def model_quality(recs: dict, cams, points_in_two_views: int) -> dict:
+    """The largest model against the ground truth (MAPPER_BARS' terms)."""
+    from vit_colmap_tpu_torch.sfm.align import pose_errors_vs_gt
+
+    if not recs:
+        return {"registered": 0, "points": 0, "points_share": 0.0, "reproj_px": None,
+                "track_length": 0.0, "pose": None}
+    rec = max(recs.values(), key=lambda r: len(r.images))
+    pose = pose_errors_vs_gt(as_f64(rec), gt_by_name(cams))
+    return {
+        "models": len(recs), "registered": len(rec.images), "points": len(rec.points3D),
+        "points_share": len(rec.points3D) / points_in_two_views,
+        "reproj_px": rec.mean_reprojection_error(), "track_length": rec.mean_track_length(),
+        "pose": None if pose is None else {k: v for k, v in pose.items() if k != "per_image"},
+    }
+
+
+def mapper_missed(q: dict) -> list[str]:
+    b, pose = MAPPER_BARS, q["pose"]
+    missed = []
+    if q["registered"] < b["registered"]:
+        missed.append(f"registered {q['registered']} < {b['registered']}")
+    if q["points_share"] < b["points_share"]:
+        missed.append(f"points share {q['points_share']:.3f} < {b['points_share']}")
+    if q["reproj_px"] is None or q["reproj_px"] >= b["reproj_px"]:
+        missed.append(f"mean reprojection error {q['reproj_px']} >= {b['reproj_px']} px")
+    if q["track_length"] <= b["track_length"]:
+        missed.append(f"mean track length {q['track_length']:.2f} <= {b['track_length']}")
+    if pose is None:
+        missed.append("fewer than 3 posed images")
+    else:
+        for key, bar in (("pose_rot_err_deg_mean", "rot_mean_deg"),
+                         ("pose_rot_err_deg_max", "rot_max_deg"),
+                         ("pose_center_err_rel_max", "center_rel")):
+            if not pose[key] < b[bar]:
+                missed.append(f"{key} {pose[key]:.4f} >= {b[bar]}")
+    return missed
+
+
+def ba_sizes(kw: dict) -> dict:
+    return {k: kw[k] for k in ("n_img", "n_cam", "n_pts", "n_obs")}
+
+
+def ba_launches(call) -> dict:
+    """CUDA launches of the mapper's recorded global BA call (torch.profiler),
+    replayed through bundle_adjust_packed with its points moved by 1% of
+    their spread so that LM does not stop after one iteration: a call of
+    one and a call of two LM iterations give the kernels of one iteration
+    (their difference) and of the call's fixed part; also the runtime's
+    launch calls and the two-iteration call's time without the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_colmap_tpu_torch.sfm import bundle
+
+    (fbuf, ibuf, bbuf), kw = call
+    sizes = ba_sizes(kw)
+    check(all(b.device.type == DEVICE for b in (fbuf, ibuf, bbuf)),
+          "BA problem tensors not on the card")
+    pts = bundle.unpack_ba_problem(fbuf, ibuf, bbuf, **sizes).points
+    g = torch.Generator(device=pts.device).manual_seed(0)
+    o = sizes["n_img"] * 6 + sizes["n_cam"] * 3
+    fbuf = fbuf.clone()
+    fbuf[o:o + pts.numel()] += (0.01 * pts.std(0) * torch.randn(
+        pts.shape, generator=g, device=pts.device)).reshape(-1)
+    kw = {k: v for k, v in kw.items() if k not in ("iters", "stats")}
+    kernels, calls, lm = {}, {}, {}
+    for iters in (1, 2):
+        stats = {}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = bundle.bundle_adjust_packed(fbuf, ibuf, bbuf, iters=iters, stats=stats, **kw)
+            sync()
+        check(out.device.type == DEVICE, "BA result not on the card")
+        kernels[iters] = sum(e.count for e in prof.key_averages() if getattr(
+            e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        calls[iters] = sum(e.count for e in prof.key_averages() if e.key in (
+            "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+        lm[iters] = stats["lm_iters"]
+    check(lm == {1: 1, 2: 2}, f"LM stopped early in the profiled calls: {lm}")
+    t = time.perf_counter()
+    bundle.bundle_adjust_packed(fbuf, ibuf, bbuf, iters=2, **kw)
+    sync()
+    return {**sizes, "solver": kw.get("solver"),
+            "reduced_size": 6 * sizes["n_img"] + 3 * sizes["n_cam"],
+            "kernels_per_lm_iter": kernels[2] - kernels[1],
+            "kernels_fixed": 2 * kernels[1] - kernels[2],
+            "launch_calls_per_lm_iter": calls[2] - calls[1],
+            "two_iter_call_s": time.perf_counter() - t}
+
+
+def ba_jacobian_error(call, huber_delta: float = 3.0) -> dict:
+    """The BA's per-observation Jacobian rows (bundle._obs_jacobians) on the
+    card for the mapper's recorded global BA problem, against central
+    differences of its residuals (bundle._residuals) in float64 on the CPU,
+    taken in the parameters LM updates additively (axis-angle, translation,
+    log focal, k1 k2, point).  Each observation depends on one camera and
+    one point, so moving one column of every camera (or point) at once
+    gives that column of every row.  Rows whose residual is near the Huber
+    threshold are left out (there the differences see the weight change,
+    which the Gauss-Newton rows hold constant).  Returns the largest and
+    the median row error ||J - J_fd|| / ||J_fd||."""
+    import torch
+
+    from vit_colmap_tpu_torch.device import exact_f32_matmuls
+    from vit_colmap_tpu_torch.sfm import bundle
+
+    (fbuf, ibuf, bbuf), kw = call
+    p = bundle.unpack_ba_problem(fbuf, ibuf, bbuf, **ba_sizes(kw))
+    with exact_f32_matmuls():
+        J, r = bundle._obs_jacobians(p.cam_params, p.focal_log, p.dist, p.points, p,
+                                     huber_delta)
+    J = J.double().cpu()
+    q = p._replace(**{k: getattr(p, k).cpu().double() if getattr(p, k).is_floating_point()
+                      else getattr(p, k).cpu() for k in p._fields})
+    params = [q.cam_params, q.focal_log[:, None], q.dist, q.points]
+    columns = [(0, j) for j in range(6)] + [(1, 0)] + [(2, j) for j in range(2)] + [
+        (3, j) for j in range(3)]
+    h = 1e-6
+
+    def residuals(which, j, step):
+        moved = [x.clone() for x in params]
+        moved[which][:, j] += step
+        return bundle._residuals(moved[0], moved[1][:, 0], moved[2], moved[3], q, huber_delta)
+
+    J_fd = torch.stack([(residuals(w, j, h) - residuals(w, j, -h)) / (2 * h)
+                        for w, j in columns], dim=-1)  # (n_obs, 2, 12)
+    r0 = bundle._residuals(*params[:1], params[1][:, 0], *params[2:], q, huber_delta)
+    keep = torch.linalg.vector_norm(r0, dim=-1) < 0.5 * huber_delta
+    err = (torch.linalg.vector_norm((J - J_fd)[keep], dim=(-2, -1))
+           / torch.linalg.vector_norm(J_fd[keep], dim=(-2, -1)))
+    return {"rows": int(keep.sum()), "of": int(keep.numel()), "max": float(err.max()),
+            "median": float(err.median())}
+
+
+def swapped_xy_ba(real):
+    """Known-wrong BA: every observation read as (y, x)."""
+
+    def wrong(fbuf, ibuf, bbuf, *, n_img, n_cam, n_pts, n_obs, **kw):
+        o = n_img * 6 + n_cam * 3 + n_pts * 3
+        fbuf = fbuf.clone()
+        fbuf[o:o + 2 * n_obs] = fbuf[o:o + 2 * n_obs].view(n_obs, 2).flip(1).reshape(-1)
+        return real(fbuf, ibuf, bbuf, n_img=n_img, n_cam=n_cam, n_pts=n_pts, n_obs=n_obs,
+                    **kw)
+
+    return wrong
+
+
+def so3_rotation(real):
+    """Known-wrong BA: the rotation as exp(d) R0 with the perturbation d
+    differentiated at 0 and R0 held constant, so that the Gauss-Newton rows
+    are those of a perturbation on SO(3) while LM still adds its step to
+    the axis-angle vector.  The values are unchanged (exp(0) is the
+    identity): only the Jacobian's rotation columns differ."""
+
+    def wrong(aa):
+        return real(aa - aa.detach()) @ real(aa.detach())
+
+    return wrong
+
+
+def mapper_phase(work: Path) -> dict:
+    """The incremental mapper at the reference's 50-view scale on the card:
+    the scene of arc_scene as a verified database, incremental_mapping with
+    the default ReconstructionConfig, and the model against the ground
+    truth (MAPPER_BARS); the BA and PnP calls' tensors on the card; the
+    BA's Jacobian on the mapper's last global BA problem against central
+    differences (MAPPER_JACOBIAN_ERR); two known-wrong BAs, observations
+    read as (y, x) and the Jacobian of a perturbation on SO(3), each of
+    which must miss a bar or the Jacobian bound; and the launches of one LM
+    iteration of the mapper's last global BA call.  Counts set to 0
+    before: no kernel of the five runs."""
+    from unittest import mock
+
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.sfm import bundle, incremental
+    from vit_colmap_tpu_torch.utils.config import ReconstructionConfig
+
+    cams, K, views = arc_scene()
+    t = time.perf_counter()
+    scene = write_views_db(work / "arc.db", K, MAPPER_SIZE, views, MAPPER_MIN_SHARED)
+    log(f"mapper: {MAPPER_VIEWS} views, {MAPPER_POINTS} points, database in "
+        f"{time.perf_counter() - t:.1f} s: {scene}")
+
+    devices, global_ba = set(), []
+
+    def recording(real, ba: bool = False):
+        def call(*args, **kw):
+            out = real(*args, **kw)
+            devices.add((real.__name__, out.device.type))
+            if ba:  # keep the last call of the most images with one fixed
+                n_fixed = int(args[2][kw["n_obs"]:kw["n_obs"] + kw["n_img"]].sum())
+                if n_fixed == 1 and (not global_ba or kw["n_img"] >= global_ba[-1][1]["n_img"]):
+                    global_ba[:] = [(tuple(a.clone() for a in args), dict(kw))]
+            return out
+        return call
+
+    sync()
+    counts.clear()
+    mlog = {}
+    t = time.perf_counter()
+    with mock.patch.object(incremental, "bundle_adjust_packed",
+                           recording(incremental.bundle_adjust_packed, ba=True)), \
+            mock.patch.object(incremental, "pnp_ransac_packed",
+                              recording(incremental.pnp_ransac_packed)):
+        recs = incremental.incremental_mapping(work / "arc.db", work, work / "arc_sparse",
+                                               ReconstructionConfig(), device=DEVICE, log=mlog)
+    sync()
+    secs = time.perf_counter() - t
+    expect_launches(dict(counts), {}, "mapper")
+    check(devices == {("bundle_adjust_packed", DEVICE), ("pnp_ransac_packed", DEVICE)},
+          f"mapper BA / PnP results on {devices}")
+    check(bool(global_ba), "the mapper made no global BA call")
+    quality = model_quality(recs, cams, scene["points_in_two_views"])
+    missed = mapper_missed(quality)
+    check(not missed, "mapper on the card: " + "; ".join(missed))
+    jac = ba_jacobian_error(global_ba[0])
+    check(jac["max"] <= MAPPER_JACOBIAN_ERR,
+          f"BA Jacobian on the card against central differences: {jac}")
+    ba = mlog[0]["ba"]
+    log(f"mapper: incremental_mapping in {secs:.1f} s on {DEVICE}: {quality} (bars "
+        f"{MAPPER_BARS}); substep seconds "
+        f"{ {k: round(v, 2) for k, v in mlog[0]['substeps'].items()} }; BA {ba['calls']} "
+        f"calls, {ba['lm_iters']} LM iterations, {ba['syncs']} host syncs "
+        f"({ba['lm_iters'] / ba['calls']:.1f} and {ba['syncs'] / ba['calls']:.1f} per call), "
+        f"phase seconds asm {ba['asm']:.2f} solve {ba['solve']:.2f} readback "
+        f"{ba['readback']:.2f}; Jacobian of the last global BA problem against central "
+        f"differences {jac} (bound {MAPPER_JACOBIAN_ERR})")
+
+    per_call = ba_launches(global_ba[0])
+    log(f"mapper: the mapper's last global BA call (points moved by 1% of their "
+        f"spread): {per_call}")
+
+    wrong_missed = {}
+    for name, target, variant in (
+            ("BA reads observations as (y, x)", incremental, "bundle_adjust_packed"),
+            ("BA Jacobian of a perturbation on SO(3)", bundle, "axis_angle_to_matrix")):
+        make = swapped_xy_ba if variant == "bundle_adjust_packed" else so3_rotation
+        global_ba.clear()
+        t = time.perf_counter()
+        with mock.patch.object(target, variant, make(getattr(target, variant))):
+            with mock.patch.object(incremental, "bundle_adjust_packed",
+                                   recording(incremental.bundle_adjust_packed, ba=True)):
+                wlog = {}
+                wrong = incremental.incremental_mapping(
+                    work / "arc.db", work, work / "arc_wrong", ReconstructionConfig(),
+                    device=DEVICE, log=wlog)
+            wrong_jac = ba_jacobian_error(global_ba[0]) if global_ba else None
+        wrong_secs = time.perf_counter() - t
+        wrong_quality = model_quality(wrong, cams, scene["points_in_two_views"])
+        bars = mapper_missed(wrong_quality)
+        jac_missed = wrong_jac is not None and not wrong_jac["max"] <= MAPPER_JACOBIAN_ERR
+        log(f"mapper: known-wrong '{name}' in {wrong_secs:.1f} s misses {len(bars)} bars: "
+            f"{bars[:4]}; Jacobian {wrong_jac}"
+            f"{' misses' if jac_missed else ' within'} its bound; BA LM iterations "
+            f"{wlog.get(0, {}).get('ba', {}).get('lm_iters')}; model {wrong_quality}")
+        wrong_missed[name] = {"bars": len(bars), "jacobian": jac_missed}
+        if not bars and not jac_missed:
+            POWERLESS.append(f"mapper '{name}': {wrong_quality}, Jacobian {wrong_jac}")
+    return {"seconds": secs, "scene": scene, "quality": quality,
+            "substeps": mlog[0]["substeps"], "ba": ba, "global_ba_call": per_call,
+            "jacobian": jac, "wrong_missed": wrong_missed}
+
+
+def scale_scene(seed: int = 0):
+    """tests/test_sfm_scale.py's scene: 12 views, 800 points."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = np.concatenate([rng.uniform(-2, 2, (SCALE_POINTS, 2)),
+                        rng.uniform(4, 8, (SCALE_POINTS, 1))], axis=1)
+    K = np.array([[600.0, 0, 400], [0, 600.0, 300], [0, 0, 1]])
+    cams, views = [], []
+    for i in range(SCALE_VIEWS):
+        ang = (i - SCALE_VIEWS / 2) * 0.05
+        R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                      [-np.sin(ang), 0, np.cos(ang)]])
+        C = np.array([3.0 * np.sin(ang), 0.05 * i, 6 - 6 * np.cos(ang)])
+        t = -R @ C
+        Xc = X @ R.T + t
+        uv = (Xc[:, :2] / Xc[:, 2:]) * 600 + np.array([400, 300])
+        uv += 0.4 * rng.standard_normal(uv.shape)
+        visible = ((Xc[:, 2] > 0.1) & (uv[:, 0] > 0) & (uv[:, 0] < 800) & (uv[:, 1] > 0)
+                   & (uv[:, 1] < 600) & (rng.random(SCALE_POINTS) > 0.25))
+        idx = np.nonzero(visible)[0]
+        cams.append((R, t))
+        views.append((idx, uv[idx]))
+    return cams, K, views
+
+
+def rotation_between_deg(q1, q2) -> float:
+    """Angle between two unit quaternions (w, x, y, z), in float64."""
+    import numpy as np
+
+    q1, q2 = (np.asarray(q, np.float64) / np.linalg.norm(q) for q in (q1, q2))
+    v = np.linalg.norm(q1[0] * q2[1:] - q2[0] * q1[1:] - np.cross(q1[1:], q2[1:]))
+    return float(np.degrees(2.0 * np.arctan2(v, abs(float(q1 @ q2)))))
+
+
+def model_difference(a, b) -> dict:
+    """How far two models of one scene differ: registered images, points,
+    rotations (both fix the same first image, so directly) and centres
+    after the oracle's gauge alignment."""
+    from vit_colmap_tpu_torch.sfm.align import pose_errors_vs_gt
+
+    same = sorted(a.images) == sorted(b.images)
+    rot = max(rotation_between_deg(a.images[i].qvec, b.images[i].qvec)
+              for i in a.images if i in b.images)
+    poses_b = {im.name: (im.R(), im.tvec) for im in as_f64(b).images.values()}
+    pose = pose_errors_vs_gt(as_f64(a), poses_b)
+    return {"same_images": same, "images": (len(a.images), len(b.images)),
+            "points": (len(a.points3D), len(b.points3D)),
+            "points_share": abs(len(a.points3D) - len(b.points3D)) / max(len(b.points3D), 1),
+            "rot_deg_max": rot,
+            "center_rel_max": None if pose is None else pose["pose_center_err_rel_max"],
+            "reproj_px": (a.mean_reprojection_error(), b.mean_reprojection_error())}
+
+
+def card_cpu_phase(work: Path) -> dict:
+    """tests/test_sfm_scale.py's 12-view scene through incremental_mapping
+    twice on the card and once on the CPU, with the same PnP uniforms: the
+    card's first run against the CPU's (SCALE_* bounds), and how far the
+    two card runs differ (index_add_ is a float atomic on the card)."""
+    from vit_colmap_tpu_torch.sfm.incremental import incremental_mapping
+    from vit_colmap_tpu_torch.utils.config import ReconstructionConfig
+
+    cams, K, views = scale_scene()
+    scene = write_views_db(work / "scale.db", K, (800, 600), views, 20)
+    cfg = ReconstructionConfig(min_num_matches=15, ba_local_iters=10, ba_global_iters=20)
+    runs, secs = {}, {}
+    for name, device in (("card", DEVICE), ("card2", DEVICE), ("cpu", "cpu")):
+        t = time.perf_counter()
+        recs = incremental_mapping(work / "scale.db", work, work / f"scale_{name}", cfg,
+                                   device=device)
+        sync()
+        secs[name] = time.perf_counter() - t
+        check(len(recs) >= 1, f"12-view scene: no model on {device}")
+        runs[name] = recs[0]
+    vs_cpu = model_difference(runs["card"], runs["cpu"])
+    check(vs_cpu["same_images"] and len(runs["card"].images) == SCALE_VIEWS
+          and vs_cpu["points_share"] <= SCALE_POINTS_SHARE
+          and vs_cpu["rot_deg_max"] < SCALE_ROT_DEG
+          and vs_cpu["center_rel_max"] < SCALE_CENTER_REL,
+          f"12-view scene, card vs CPU: {vs_cpu}")
+    runs_apart = model_difference(runs["card"], runs["card2"])
+    quality = model_quality({0: runs["card"]}, cams, scene["points_in_two_views"])
+    log(f"card vs CPU: 12-view scene ({scene}) in {secs['card']:.1f} / {secs['card2']:.1f} s "
+        f"on the card, {secs['cpu']:.1f} s on the CPU; card vs CPU {vs_cpu}; two card runs "
+        f"apart {runs_apart}; card model vs ground truth {quality}")
+    return {"seconds": secs, "vs_cpu": vs_cpu, "card_runs_apart": runs_apart,
+            "quality": quality}
 
 
 def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
@@ -1651,8 +2176,13 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
     # Warm end-to-end rates: a second Pipeline.run on the same pipeline, and
     # a second fixedmax extraction on the same extractor.
     sync()
+    first_models = dict(pipeline.reconstructions)
     report = pipeline.run(img_dir, work / "out", work / "run2.db")
     sync()
+    log(f"times: warm run's verified pairs equal to the first run's: "
+        f"{verified_pairs(work / 'run1.db') == verified_pairs(work / 'run2.db')}; models "
+        f"(registered images, points) first {model_sizes(first_models)}, warm "
+        f"{model_sizes(pipeline.reconstructions)}")
     t = time.perf_counter()
     fixedmax_extractor.extract(img_dir, work / "fixedmax2.db", CameraConfig().model)
     sync()
@@ -1666,6 +2196,7 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
         "verify_s": report["verify_s"],
         "verify_chunks": report["verify_chunks"],
         "match_verify_s": report["match_verify_s"],
+        "reconstruction_s": report["reconstruction_s"],
         "fixedmax_extract_img_per_s": NUM_IMAGES / fixedmax_s,
         "fixedmax_extract_s": fixedmax_s,
     }
@@ -1798,6 +2329,8 @@ def main() -> int:
         fixedmax_extractor, fixedmax_launches = fixedmax_path(work)
         path_launches, _, int8_ops, int8_vs_float = matcher_paths(work, fixedmax_extractor)
         verification = verification_phase()
+        mapper = mapper_phase(work)
+        card_cpu = card_cpu_phase(work)
         times, rates, split, f32_ms, matcher = times_phase(
             pipeline, work, work / "images", inputs_main, fixedmax_extractor, int8_ops,
             max_mhz, sass["match_topk2_int8"]["main_loop_opcodes"])
@@ -1839,7 +2372,8 @@ def main() -> int:
         })
     log(f"done: build {build_s:.1f} s, database {db_counts}, main-path verification "
         f"{report['verify_s']} s (chunks {report['verify_chunks']}), calibrated "
-        f"verification {verification}, rates {rates}, "
+        f"verification {verification}, mapper {mapper}, card vs CPU {card_cpu}, "
+        f"rates {rates}, "
         f"int8 rows differing from the float matcher {int8_vs_float}, saliency "
         f"{saliency}, attention bound split {split}, f32 attention ms {f32_ms}, "
         f"matcher times {matcher}, SASS {sass}")

@@ -361,3 +361,160 @@ def test_verification_ignores_global_tf32(cuda_device):
         assert torch.equal(getattr(on, field), getattr(off, field)), field
     for field in ("F", "E", "H", "qvec", "tvec"):
         assert (getattr(on, field) - getattr(off, field)).abs().max().item() <= 1e-6, field
+
+
+def _ba_problem(device, n_pts=200, n_img=6, seed=0):
+    """Points in a box seen by cameras on an arc (0.5 px noise, the poses'
+    translations and the points perturbed), the first two images fixed and
+    the focal frozen (with it free, focal and depth trade off so weakly that
+    the card's atomic sums in another order move the points by up to 4e-4
+    between two runs)."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.sfm import bundle
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform([-1, -1, 3], [1, 1, 5], (n_pts, 3))
+    cam = np.zeros((n_img, 6), np.float32)
+    obs_xy = []
+    for i in range(n_img):
+        a = (i - n_img / 2) * 0.1
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        t = -R @ np.array([2.0 * np.sin(a), 0.1 * i, 4.0 - 4.0 * np.cos(a)])
+        Xc = X @ R.T + t
+        obs_xy.append(Xc[:, :2] / Xc[:, 2:] * 500 + [320, 240]
+                      + 0.5 * rng.standard_normal((n_pts, 2)))
+        cam[i, :3] = bundle.matrix_to_axis_angle(torch.tensor(R, dtype=torch.float32))
+        cam[i, 3:] = t + (0.03 if i >= 2 else 0.0)
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+    n_obs = n_img * n_pts
+    f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    return bundle.BAProblem(
+        cam_params=f32(cam), focal_log=f32([0.0]),
+        points=f32(X + 0.03 * rng.standard_normal(X.shape)),
+        obs_cam=torch.arange(n_img, device=device).repeat_interleave(n_pts),
+        obs_point=torch.arange(n_pts, device=device).repeat(n_img),
+        obs_xy=f32(np.concatenate(obs_xy)), obs_valid=torch.ones(n_obs, dtype=torch.bool,
+                                                                 device=device),
+        K=f32(np.tile(K, (n_img, 1, 1))), cam_of_img=torch.zeros(n_img, dtype=torch.long,
+                                                                 device=device),
+        fixed_cam_mask=torch.tensor([True, True] + [False] * (n_img - 2), device=device),
+        refine_focal_mask=torch.zeros(1, dtype=torch.bool, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["schur", "cg"])
+def test_bundle_adjust_on_cuda_equals_cpu(cuda_device, solver):
+    """LM on the card and on the CPU from the same problem: the mean squared
+    residual within 1e-4 relative and the parameters within 1e-3 (the
+    card's segment sums are float atomics in another order)."""
+    from vit_colmap_tpu_torch.sfm import bundle
+
+    cpu = bundle.bundle_adjust(_ba_problem("cpu"), iters=20, solver=solver)
+    card = bundle.bundle_adjust(_ba_problem(cuda_device), iters=20, solver=solver)
+    assert all(t.device.type == "cuda" for t in card)
+    assert abs(card[4].item() - cpu[4].item()) <= 1e-4 * cpu[4].item()
+    for k in (0, 1, 3):
+        assert (card[k].cpu() - cpu[k]).abs().max().item() <= 1e-3, k
+
+
+@pytest.mark.gpu
+def test_bundle_adjust_ignores_global_tf32(cuda_device, monkeypatch):
+    """With the global TF32 flag on, every product and the solve of the
+    Schur step see it off, and the caller's setting is back afterwards.
+    The results of the two runs are compared within the card's run-to-run
+    spread: the atomic segment sums add in another order on each run, and
+    LM's step choices amplify that to a few 1e-4 in the points after 10
+    iterations, between two runs with the flag off as much as between the
+    flag off and on, so the bounds are 1e-4 relative on the mean squared
+    residual and 1e-3 on the points; the spies, not the numbers, show the
+    flag off."""
+    from vit_colmap_tpu_torch.sfm import bundle
+
+    seen = []
+    for name in ("einsum", "linalg.solve_ex"):
+        owner = torch.linalg if name == "linalg.solve_ex" else torch
+        real = getattr(owner, name.split(".")[-1])
+
+        def spy(*args, _real=real, _name=name, **kw):
+            seen.append((_name, torch.backends.cuda.matmul.allow_tf32))
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(owner, name.split(".")[-1], spy)
+    previous = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = bundle.bundle_adjust(_ba_problem(cuda_device), iters=10, solver="schur")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        seen.clear()
+        on = bundle.bundle_adjust(_ba_problem(cuda_device), iters=10, solver="schur")
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+    assert {name for name, _ in seen} == {"einsum", "linalg.solve_ex"}
+    assert not any(flag for _, flag in seen)
+    assert abs(on[4].item() - off[4].item()) <= 1e-4 * off[4].item()
+    assert (on[3] - off[3]).abs().max().item() <= 1e-3
+
+
+def _pnp_args():
+    """One image of _ba_problem's scene for PnP: its unperturbed points, its
+    observations with the first 30 replaced by random pixels, and 512
+    hypotheses' uniforms (CPU tensors)."""
+    import numpy as np
+
+    p = _ba_problem("cpu")
+    n = p.points.shape[0]
+    X = torch.tensor(np.random.default_rng(0).uniform([-1, -1, 3], [1, 1, 5], (n, 3)),
+                     dtype=torch.float32)  # _ba_problem's unperturbed points
+    xy = p.obs_xy[2 * n:3 * n].clone()
+    xy[:30] = torch.rand(30, 2, generator=torch.Generator().manual_seed(1)) * 640
+    u = torch.rand((512, 6), generator=torch.Generator().manual_seed(2))
+    return xy, X, torch.ones(n, dtype=torch.bool), p.K[0], u
+
+
+@pytest.mark.gpu
+def test_pnp_on_cuda_equals_cpu(cuda_device):
+    """PnP RANSAC with the same uniforms on the card and on the CPU: the
+    same inliers, R and t within 1e-3."""
+    from vit_colmap_tpu_torch.sfm import pnp
+
+    args = _pnp_args()
+    cpu = pnp.pnp_ransac(*args, max_error_px=8.0)
+    card = pnp.pnp_ransac(*(a.to(cuda_device) for a in args), max_error_px=8.0)
+    assert torch.equal(card.inlier_mask.cpu(), cpu.inlier_mask)
+    assert (card.R.cpu() - cpu.R).abs().max().item() <= 1e-3
+    assert (card.t.cpu() - cpu.t).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_pnp_ignores_global_tf32(cuda_device, monkeypatch):
+    """With the global TF32 flag on, every batched product of PnP RANSAC
+    sees it off, the caller's setting is back afterwards, and the result is
+    the flag-off run's: the same inliers, R and t within 1e-6 (no atomics
+    on this path)."""
+    from vit_colmap_tpu_torch.sfm import pnp
+
+    args = [a.to(cuda_device) for a in _pnp_args()]
+    seen = []
+    real = torch.einsum
+
+    def spy(*a, **kw):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch, "einsum", spy)
+    previous = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = pnp.pnp_ransac(*args, max_error_px=8.0)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        seen.clear()
+        on = pnp.pnp_ransac(*args, max_error_px=8.0)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+    assert seen and not any(seen)
+    assert torch.equal(on.inlier_mask, off.inlier_mask)
+    assert (on.R - off.R).abs().max().item() <= 1e-6
+    assert (on.t - off.t).abs().max().item() <= 1e-6

@@ -168,9 +168,10 @@ def test_pipeline_cli_runs_slice_on_cpu(tmp_path, tiny_backbone, images):
 
 @pytest.mark.parametrize("skip", [(), ("verification",)])
 def test_unported_stages_raise(tmp_path, images, skip):
-    """Reconstruction is not ported: the pipeline raises before any stage
-    runs, with verification on or skipped."""
+    """An extractor the port lacks (SIFT) raises before any stage runs, with
+    verification on or skipped and reconstruction on."""
     cfg = Config()
+    cfg.extractor.extractor_type = "sift"
     cfg.matching.do_verification = "verification" not in skip
     cfg.do_reconstruction = True
     with pytest.raises(NotImplementedError, match="not ported yet"):

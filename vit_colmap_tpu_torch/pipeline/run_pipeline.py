@@ -5,8 +5,9 @@ Counterpart of ``vit_colmap_tpu/pipeline/run_pipeline.py``:
 results_dir)`` extracts features into a COLMAP database, matches and
 verifies every pair, and exports the metrics, with the same flags and the
 same per-stage report.  Ported so far: the ``vit`` and ``dummy``
-extractors, matching and geometric verification.  Reconstruction is not
-ported yet and must be skipped (``--skip-reconstruction``).
+extractors, matching, geometric verification and incremental
+reconstruction (stage 3, on by default, written to ``<output>/sparse/<idx>/``;
+``--skip-reconstruction`` turns it off).
 """
 
 from __future__ import annotations
@@ -25,14 +26,12 @@ from vit_colmap_tpu_torch.utils.metrics import MetricsExtractor, MetricsResult
 
 logger = logging.getLogger(__name__)
 
-NOT_PORTED = "{} is not ported yet (see ROADMAP.md); pass {}"
-
-
 class Pipeline:
     def __init__(self, config: Optional[Config] = None, device=None):
         self.config = config or Config()
         self.device = resolve_device(device)
         self._extractors: dict[tuple, object] = {}
+        self.reconstructions: dict = {}
 
     def _check_ported(self) -> None:
         c = self.config
@@ -40,10 +39,6 @@ class Pipeline:
             raise NotImplementedError(
                 f"extractor {c.extractor.extractor_type!r} is not ported yet "
                 "(only 'vit' and 'dummy'); see ROADMAP.md"
-            )
-        if c.do_reconstruction:
-            raise NotImplementedError(
-                NOT_PORTED.format("reconstruction", "--skip-reconstruction")
             )
 
     def _make_extractor(self):
@@ -119,7 +114,18 @@ class Pipeline:
             )
             t_match = time.perf_counter() - t1
 
-        self._print_summary(db_path, t_extract, t_match)
+        t_recon = 0.0
+        self.reconstructions = {}
+        if self.config.do_reconstruction:
+            from vit_colmap_tpu_torch.sfm.incremental import incremental_mapping
+
+            t2 = time.perf_counter()
+            self.reconstructions = incremental_mapping(
+                db_path, image_dir, output_dir / "sparse", self.config.reconstruction,
+                device=self.device)
+            t_recon = time.perf_counter() - t2
+
+        self._print_summary(db_path, t_extract, t_match, t_recon)
         if dataset and scene and results_dir:
             self.extract_and_export_metrics(db_path, output_dir, dataset, scene,
                                             results_dir)
@@ -127,16 +133,21 @@ class Pipeline:
             "num_images": num_images,
             "extract_s": round(t_extract, 3),
             "match_verify_s": round(t_match, 3),
-            "reconstruction_s": 0.0,
-            "total_s": round(t_extract + t_match, 3),
+            "reconstruction_s": round(t_recon, 3),
+            "total_s": round(t_extract + t_match + t_recon, 3),
         }
+        if self.reconstructions:
+            report["registered_images"] = sum(
+                len(r.images) for r in self.reconstructions.values())
+            report["points3d"] = sum(len(r.points3D) for r in self.reconstructions.values())
         if stats is not None:  # the split of the match+verify stage
             report.update(match_s=round(stats.match_seconds, 3),
                           verify_s=round(stats.verify_seconds, 3),
                           verify_chunks=dict(stats.verify_chunks))
         return report
 
-    def _print_summary(self, db_path: Path, t_extract: float, t_match: float) -> None:
+    def _print_summary(self, db_path: Path, t_extract: float, t_match: float,
+                       t_recon: float) -> None:
         with ColmapDatabase.open_database(db_path) as db:
             logger.info("=" * 60)
             logger.info("Pipeline summary")
@@ -158,6 +169,13 @@ class Pipeline:
             self.config.reconstruction.min_num_matches, m.pairs_above_threshold,
             m.config_distribution,
         )
+        if self.reconstructions:
+            logger.info(
+                "  [3] reconstruction %.2fs — %d models, %d registered images, %d 3D points",
+                t_recon, len(self.reconstructions),
+                sum(len(r.images) for r in self.reconstructions.values()),
+                sum(len(r.points3D) for r in self.reconstructions.values()),
+            )
         logger.info("=" * 60)
 
     def extract_and_export_metrics(
@@ -168,15 +186,16 @@ class Pipeline:
         scene: str,
         results_dir: Path,
     ) -> MetricsResult:
-        """Feature and matching metrics of the database, written as
+        """Feature, matching and reconstruction metrics (the last run's
+        models, none when reconstruction was skipped), written as
         ``{results_dir}/{dataset}/{scene}/{extractor}.json`` and appended to
-        ``{results_dir}/summary.csv`` (no reconstruction metrics: the
-        mapper is not ported yet)."""
+        ``{results_dir}/summary.csv``."""
         result = MetricsExtractor(db_path, output_dir).extract_all_metrics(
             dataset=dataset,
             scene=scene,
             extractor_type=self.config.extractor.extractor_type,
             config=self.config.to_dict(),
+            reconstructions=self.reconstructions or None,
         )
         export_metrics(result, results_dir)
         return result

@@ -380,3 +380,80 @@ def qvec_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def _opposite_of_minor(M: np.ndarray, row: int, col: int) -> float:
+    x1 = 1 if col == 0 else 0
+    x2 = 1 if col == 2 else 2
+    y1 = 1 if row == 0 else 0
+    y2 = 1 if row == 2 else 2
+    return M[y1, x2] * M[y2, x1] - M[y1, x1] * M[y2, x2]
+
+
+def _signd(x: float) -> int:
+    return 1 if x >= 0 else -1
+
+
+def decompose_homography(H, K):
+    """Homography -> candidate motions (Rs, ts, ns), host numpy float64.
+
+    The analytical method of Malis & Vargas, "Deeper understanding of the
+    homography decomposition for vision-based control" (INRIA RR-6303,
+    2007), as OpenCV's ``decomposeHomographyMat`` implements it, with its
+    solutions in its order: (Ra, ta, na), (Ra, -ta, -na), (Rb, tb, nb),
+    (Rb, -tb, -nb), or one motion (H itself, t = n = 0) when the normalized
+    H is a rotation.  The mapper's init pair keeps the first of equally good
+    candidates, so the order matters.  Returns lists of (3, 3) and (3,)
+    arrays."""
+    H = np.asarray(H, np.float64)
+    K = np.asarray(K, np.float64)
+    Hn = np.linalg.inv(K) @ H @ K
+    # Remove the scale: divide by the middle singular value.
+    Hn = Hn * (1.0 / np.linalg.svd(Hn, compute_uv=False)[1])
+    S = Hn.T @ Hn - np.eye(3)
+    if np.abs(S).max() < 1e-3:  # a pure rotation
+        return [Hn], [np.zeros(3)], [np.zeros(3)]
+
+    M00 = _opposite_of_minor(S, 0, 0)
+    M11 = _opposite_of_minor(S, 1, 1)
+    M22 = _opposite_of_minor(S, 2, 2)
+    rtM00, rtM11, rtM22 = np.sqrt(M00), np.sqrt(M11), np.sqrt(M22)
+    e12 = _signd(_opposite_of_minor(S, 1, 2))
+    e02 = _signd(_opposite_of_minor(S, 0, 2))
+    e01 = _signd(_opposite_of_minor(S, 0, 1))
+    nS = np.abs(np.diag(S))
+    # The largest |S_ii| (the first of equals, by OpenCV's comparisons).
+    if nS[0] < nS[1]:
+        indx = 2 if nS[1] < nS[2] else 1
+    else:
+        indx = 2 if nS[0] < nS[2] else 0
+    if indx == 0:
+        npa = np.array([S[0, 0], S[0, 1] + rtM22, S[0, 2] + e12 * rtM11])
+        npb = np.array([S[0, 0], S[0, 1] - rtM22, S[0, 2] - e12 * rtM11])
+    elif indx == 1:
+        npa = np.array([S[0, 1] + rtM22, S[1, 1], S[1, 2] - e02 * rtM00])
+        npb = np.array([S[0, 1] - rtM22, S[1, 1], S[1, 2] + e02 * rtM00])
+    else:
+        npa = np.array([S[0, 2] + e01 * rtM11, S[1, 2] + rtM00, S[2, 2]])
+        npb = np.array([S[0, 2] - e01 * rtM11, S[1, 2] - rtM00, S[2, 2]])
+
+    trace_s = S[0, 0] + S[1, 1] + S[2, 2]
+    # OpenCV takes this square root in single precision (sqrtf).
+    v = 2.0 * float(np.sqrt(np.float32(1.0 + trace_s - M00 - M11 - M22)))
+    esii = _signd(S[indx, indx])
+    r = np.sqrt(2.0 + trace_s + v)
+    n_t = np.sqrt(2.0 + trace_s - v)
+    na = npa / np.linalg.norm(npa)
+    nb = npb / np.linalg.norm(npb)
+    half_nt = 0.5 * n_t
+    esii_t_r = esii * r
+    ta_star = half_nt * (esii_t_r * nb - n_t * na)
+    tb_star = half_nt * (esii_t_r * na - n_t * nb)
+
+    def rotation(t_star, n):  # R = H (I - (2 / v) t* nᵀ), det +1
+        R = Hn @ (np.eye(3) - (2.0 / v) * np.outer(t_star, n))
+        return -R if np.linalg.det(R) < 0 else R
+
+    Ra, Rb = rotation(ta_star, na), rotation(tb_star, nb)
+    ta, tb = Ra @ ta_star, Rb @ tb_star
+    return [Ra, Ra, Rb, Rb], [ta, -ta, tb, -tb], [na, -na, nb, -nb]

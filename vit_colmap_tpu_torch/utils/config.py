@@ -1,9 +1,9 @@
 """Pipeline configuration: the port's own copy of ``vit_colmap_tpu/utils/
 config.py``, with the same dataclasses, fields and defaults, so a config
 tree and its CLI flags mean the same thing in both packages.  Fields that
-drive code the port has not ported yet (reconstruction, the TPU wire
-formats) are kept so that the two trees stay interchangeable; the code that
-reads them raises where the port has no counterpart.
+drive code the port has not ported yet (the TPU wire formats) are kept so
+that the two trees stay interchangeable; the code that reads them raises
+where the port has no counterpart.
 """
 
 from __future__ import annotations
@@ -79,7 +79,10 @@ class MatchingConfig:
 
 @dataclass
 class ReconstructionConfig:
-    """Incremental-mapper settings (not ported yet: see ROADMAP.md)."""
+    """Incremental-mapper settings (``sfm/incremental.py``).  The port does
+    not pad its problems to shape buckets, so ``ba_coarse_buckets`` has no
+    effect; ``ba_unified_iters`` (> 0) sets every BA call's LM budget, and
+    ``ba_solver`` picks "schur" (dense reduced camera system) or "cg"."""
 
     min_num_matches: int = 15
     multiple_models: bool = True
