@@ -59,7 +59,23 @@ Phases, one flushed line each with elapsed seconds:
    them, and the launches of one LM iteration of a global BA call; and
    the 12-view scene of
    ``tests/test_sfm_scale.py`` on the card twice and on the CPU once with
-   the same PnP uniforms (card against CPU, and card run against card run);
+   the same PnP uniforms (card against CPU, and the two card runs bit for
+   bit: BA's segment sums add in a fixed order);
+   then SIFT and its scene: the rendered 50-view scene
+   (``scripts/bench_reconstruction.py``'s protocol: 480 x 640, seed 7,
+   the port's numpy renderer), ``extract_sift`` on two of its views on the
+   card against the CPU (SIFT_SHARES) and a known-wrong variant whose
+   descriptor angles are not rotated (it must miss a bar), SIFT's rates at
+   480 x 640 and 1190 x 1596 and one call's launches (``torch.profiler``);
+   the 50 views through ``Pipeline.run`` with SIFT, 2048 keypoints and
+   the renderer's PINHOLE camera (kernel 2 on all 1,225 pairs, no other
+   kernel), held to SCENE_BARS against the renderer's poses, with its
+   stage seconds, and a known-wrong SIFT without the octave factor on the
+   keypoints of octaves >= 1 that must miss a bar; then the YUV420 wire:
+   both unpackers on the card against the CPU, a
+   ``ViTExtractor(transfer_format="yuv420c4")`` extraction of the main
+   path's 8 images into a database (kernel 1), its tokens against the rgb
+   extractor's (cosine per token) and the two extractions' warm seconds;
 6. times: CUDA-event medians of each kernel, its plain version and one
    PyTorch library call computing the same function (kernels 1 and 3 also
    in f32), each kernel's mean over calls run back to back beside its
@@ -71,11 +87,11 @@ Phases, one flushed line each with elapsed seconds:
    back, and the pipeline's extraction / matching / verification /
    reconstruction times on a second, warm run.
 
-Every path (the main one, each of 5a-5d, calibrated verification and the
-mapper) is driven with the kernels' launch counts set to 0 just before it
-and read just after; each kernel must have launched on its path, and the
-kernels it replaces must not have (verification and the mapper launch none
-of the five).
+Every path (the main one, each of 5a-5d, calibrated verification, the
+mapper, SIFT, the 50-view scene and the wire) is driven with the kernels'
+launch counts set to 0 just before it and read just after; each kernel
+must have launched on its path, and the kernels it replaces must not have
+(verification, the mapper and SIFT launch none of the five).
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
@@ -236,6 +252,42 @@ SCALE_ROT_DEG = 0.05
 SCALE_CENTER_REL = 1e-3
 
 
+# The rendered 50-view scene: scripts/bench_reconstruction.py's protocol
+# (render_multiview_scene at 480 x 640, seed 7, focal 0.94 x the longer
+# side) through Pipeline.run with SIFT, 2048 keypoints and a PINHOLE camera
+# at the renderer's K.  SCENE_BARS come from the JAX package's reading of
+# these very views on the CPU (scripts/torch_recon_bars.py: 50/50
+# registered, 0.392 px, rotation error 0.0341 deg mean and 0.103 max,
+# centres 0.00137 of the extent), with margins: 2 views, twice the
+# reprojection error, about 4x and 5x the rotation errors, 7x the centre
+# error.  results/RECON_r5.json (OpenCV's pixels, a TPU: 0.385 px, 0.0383
+# and 0.0905 deg, 0.00127) is a comparison, not a bar.
+SCENE_VIEWS = 50
+SCENE_SIZE = (480, 640)  # (height, width)
+SCENE_FOCAL = 0.94 * max(SCENE_SIZE)
+SCENE_SEED = 7
+SCENE_KEYPOINTS = 2048
+SCENE_BARS = {"registered": 48, "reproj_px": 0.8, "rot_mean_deg": 0.15,
+              "rot_max_deg": 0.5, "center_rel_mean": 0.01}
+# SIFT on the card against the port's CPU path on two of the scene's views
+# (sift_agreement): the CPU's keypoints with a card keypoint within SIFT_TOL
+# px in position and scale, of those the ones within SIFT_TOL rad in
+# orientation too, and over those pairs the descriptor bytes within 1
+# level (the 99% with which tests/test_torch_sift.py holds the port's CPU
+# path to the JAX package; the largest byte difference is logged).
+# Orientation has the lowest bar: the card's and the CPU's atan2, exp and
+# convolutions differ in their last bits, and where two histogram bins
+# nearly tie that moves the peak to the neighbour bin.
+SIFT_VIEWS = (0, 25)
+SIFT_TOL = 0.01
+SIFT_SHARES = {"position": 0.99, "orientation": 0.97, "descriptor": 0.99}
+# The wire phase: unpacking on the card against the CPU (f32 RGB in
+# [0, 255]), and dense tokens of the yuv420c4 wire against rgb's (the
+# bars of tests/test_transfer.py::test_backbone_features_agree_across_formats).
+WIRE_UNPACK_TOL = 1e-3
+WIRE_COS_MEAN = 0.97
+WIRE_COS_MIN = 0.8
+
 
 def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
@@ -295,6 +347,23 @@ def back_to_back_ms(fn, reps: int, warmup: int = 1) -> float:
 def kernel_ms(fn) -> dict:
     """A kernel's ``ms`` (``cuda_ms``) and ``back_to_back_ms``."""
     return {"ms": cuda_ms(fn, 10), "b2b_ms": back_to_back_ms(fn, 10)}
+
+
+def profiled(fn) -> dict:
+    """CUDA kernels the card ran, and the runtime's launch calls, in one
+    call of ``fn`` (torch.profiler), synchronized."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    events = prof.key_averages()
+    return {"kernels": sum(e.count for e in events if getattr(e, "device_type", None)
+                           == torch.autograd.DeviceType.CUDA),
+            "launch_calls": sum(e.count for e in events if e.key in (
+                "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx"))}
 
 
 def synthetic_images(seed: int):
@@ -1484,7 +1553,6 @@ def chunk_launches(pts1, pts2, mask, u, thresh) -> dict:
     solve, score, pick) on every lane, from torch.profiler: kernels the
     card ran, and the runtime's launch calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from vit_colmap_tpu_torch.ops import ransac
     from vit_colmap_tpu_torch.sfm import geometry
@@ -1498,20 +1566,12 @@ def chunk_launches(pts1, pts2, mask, u, thresh) -> dict:
 
     chunk()
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        chunk()
-        sync()
-    kernels = sum(e.count for e in prof.key_averages()
-                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
-    calls = sum(e.count for e in prof.key_averages()
-                if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                             "cuLaunchKernelEx"))
+    counted = profiled(chunk)
     t = time.perf_counter()
     for _ in range(3):
         chunk()
     sync()
-    return {"kernels": kernels, "launch_calls": calls,
-            "chunk_ms": (time.perf_counter() - t) / 3 * 1e3}
+    return {**counted, "chunk_ms": (time.perf_counter() - t) / 3 * 1e3}
 
 
 def verification_phase() -> dict:
@@ -1756,8 +1816,9 @@ def ba_launches(call) -> dict:
     one and a call of two LM iterations give the kernels of one iteration
     (their difference) and of the call's fixed part; also the runtime's
     launch calls and the two-iteration call's time without the profiler."""
+    from unittest import mock
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from vit_colmap_tpu_torch.sfm import bundle
 
@@ -1774,26 +1835,66 @@ def ba_launches(call) -> dict:
     kw = {k: v for k, v in kw.items() if k not in ("iters", "stats")}
     kernels, calls, lm = {}, {}, {}
     for iters in (1, 2):
-        stats = {}
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = bundle.bundle_adjust_packed(fbuf, ibuf, bbuf, iters=iters, stats=stats, **kw)
-            sync()
-        check(out.device.type == DEVICE, "BA result not on the card")
-        kernels[iters] = sum(e.count for e in prof.key_averages() if getattr(
-            e, "device_type", None) == torch.autograd.DeviceType.CUDA)
-        calls[iters] = sum(e.count for e in prof.key_averages() if e.key in (
-            "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+        stats, out = {}, []
+        counted = profiled(lambda: out.append(bundle.bundle_adjust_packed(
+            fbuf, ibuf, bbuf, iters=iters, stats=stats, **kw)))
+        check(out[0].device.type == DEVICE, "BA result not on the card")
+        kernels[iters], calls[iters] = counted["kernels"], counted["launch_calls"]
         lm[iters] = stats["lm_iters"]
     check(lm == {1: 1, 2: 2}, f"LM stopped early in the profiled calls: {lm}")
     t = time.perf_counter()
     bundle.bundle_adjust_packed(fbuf, ibuf, bbuf, iters=2, **kw)
     sync()
+    two_iter_s = time.perf_counter() - t
+
+    # The cost of the deterministic segment sums: an LM iteration (a
+    # two-iteration call less a one-iteration call) with them and with
+    # index_add_ in their place, in turns (sorted, index_add_, index_add_,
+    # sorted), each the median of 3 pairs of calls.
+    def lm_iter_s() -> float:
+        spans = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            bundle.bundle_adjust_packed(fbuf, ibuf, bbuf, iters=1, **kw)
+            sync()
+            t2 = time.perf_counter()
+            bundle.bundle_adjust_packed(fbuf, ibuf, bbuf, iters=2, **kw)
+            sync()
+            spans.append((time.perf_counter() - t2) - (t2 - t1))
+        return statistics.median(spans)
+
+    ab = {"sorted": [], "index_add": []}
+    for variant in ("sorted", "index_add", "index_add", "sorted"):
+        if variant == "sorted":
+            ab[variant].append(lm_iter_s())
+        else:
+            with mock.patch.object(bundle, "_SegmentSums", AtomicSegmentSums):
+                ab[variant].append(lm_iter_s())
+    with mock.patch.object(bundle, "_SegmentSums", AtomicSegmentSums):
+        atomic_kernels = profiled(lambda: bundle.bundle_adjust_packed(
+            fbuf, ibuf, bbuf, iters=2, **kw))["kernels"]
     return {**sizes, "solver": kw.get("solver"),
             "reduced_size": 6 * sizes["n_img"] + 3 * sizes["n_cam"],
             "kernels_per_lm_iter": kernels[2] - kernels[1],
             "kernels_fixed": 2 * kernels[1] - kernels[2],
             "launch_calls_per_lm_iter": calls[2] - calls[1],
-            "two_iter_call_s": time.perf_counter() - t}
+            "two_iter_call_s": two_iter_s,
+            "lm_iter_s": {k: statistics.mean(v) for k, v in ab.items()},
+            "lm_iter_s_turns": ab,
+            "index_add_two_iter_kernels": atomic_kernels, "sorted_two_iter_kernels": kernels[2]}
+
+
+class AtomicSegmentSums:
+    """BA's segment sums as ``index_add_`` (float atomics on the card, in an
+    order that changes from run to run), the way they were before they were
+    made deterministic; only for the cost comparison of ``ba_launches``."""
+
+    def __call__(self, key, data, ids, n):
+        import torch
+
+        flat = (ids() if callable(ids) else ids).reshape(-1)
+        out = torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device)
+        return out.index_add_(0, flat, data)
 
 
 def ba_jacobian_error(call, huber_delta: float = 3.0) -> dict:
@@ -2023,11 +2124,22 @@ def model_difference(a, b) -> dict:
             "reproj_px": (a.mean_reprojection_error(), b.mean_reprojection_error())}
 
 
+def models_bit_equal(a, b) -> bool:
+    """The same images and points, with bit-equal poses and positions."""
+    import numpy as np
+
+    return (sorted(a.images) == sorted(b.images) and sorted(a.points3D) == sorted(b.points3D)
+            and all(np.array_equal(a.images[i].qvec, b.images[i].qvec)
+                    and np.array_equal(a.images[i].tvec, b.images[i].tvec) for i in a.images)
+            and all(np.array_equal(a.points3D[p].xyz, b.points3D[p].xyz)
+                    for p in a.points3D))
+
+
 def card_cpu_phase(work: Path) -> dict:
     """tests/test_sfm_scale.py's 12-view scene through incremental_mapping
     twice on the card and once on the CPU, with the same PnP uniforms: the
-    card's first run against the CPU's (SCALE_* bounds), and how far the
-    two card runs differ (index_add_ is a float atomic on the card)."""
+    card's first run against the CPU's (SCALE_* bounds), and the two card
+    runs bit for bit (BA's segment sums add in a fixed order)."""
     from vit_colmap_tpu_torch.sfm.incremental import incremental_mapping
     from vit_colmap_tpu_torch.utils.config import ReconstructionConfig
 
@@ -2050,12 +2162,294 @@ def card_cpu_phase(work: Path) -> dict:
           and vs_cpu["center_rel_max"] < SCALE_CENTER_REL,
           f"12-view scene, card vs CPU: {vs_cpu}")
     runs_apart = model_difference(runs["card"], runs["card2"])
+    bit_equal = models_bit_equal(runs["card"], runs["card2"])
     quality = model_quality({0: runs["card"]}, cams, scene["points_in_two_views"])
     log(f"card vs CPU: 12-view scene ({scene}) in {secs['card']:.1f} / {secs['card2']:.1f} s "
-        f"on the card, {secs['cpu']:.1f} s on the CPU; card vs CPU {vs_cpu}; two card runs "
-        f"apart {runs_apart}; card model vs ground truth {quality}")
-    return {"seconds": secs, "vs_cpu": vs_cpu, "card_runs_apart": runs_apart,
+        f"on the card, {secs['cpu']:.1f} s on the CPU; card vs CPU {vs_cpu}; determinism: "
+        f"two card runs bit-equal {bit_equal}, apart {runs_apart}; card model vs ground "
+        f"truth {quality}")
+    check(bit_equal, f"12-view scene: two card runs differ: {runs_apart}")
+    return {"seconds": secs, "vs_cpu": vs_cpu, "card_runs_bit_equal": bit_equal,
             "quality": quality}
+
+
+def render_phase(work: Path):
+    """The rendered 50-view scene, written by the port's numpy renderer."""
+    from vit_colmap_tpu_torch.dataloader.synthetic_benchmark import render_multiview_scene
+
+    t = time.perf_counter()
+    img_dir = work / "scene50"
+    _, K = render_multiview_scene(img_dir, n_cams=SCENE_VIEWS, size=SCENE_SIZE,
+                                  focal=SCENE_FOCAL, seed=SCENE_SEED)
+    seconds = time.perf_counter() - t
+    log(f"render: {SCENE_VIEWS} views {SCENE_SIZE[1]}x{SCENE_SIZE[0]} (seed {SCENE_SEED}, "
+        f"focal {SCENE_FOCAL:.1f}) in {seconds:.1f} s")
+    return img_dir, K, seconds
+
+
+def sift_kwargs() -> dict:
+    """extract_sift's arguments as SiftExtractor passes them."""
+    return dict(max_keypoints=SCENE_KEYPOINTS, num_octaves=4, contrast_thresh=0.02,
+                num_orientations=2)
+
+
+def sift_agreement(ref, out) -> dict:
+    """How far ``out``'s SIFT (kpts, descs per image) follows ``ref``'s, the
+    least over the images: ``position``, the share of ref's keypoints with
+    one of out's within SIFT_TOL px in x, y and scale (keypoints of nearly
+    equal score may swap ranks, so rows are paired by position);
+    ``orientation``, the share of those with one also within SIFT_TOL rad
+    (a last-bit difference can move a histogram peak to its neighbour bin);
+    over the pairs so found, ``descriptor``, the share of descriptor bytes
+    within 1 level, and ``max_byte_diff``."""
+    import numpy as np
+
+    shares = {"position": [], "orientation": [], "descriptor": [], "max_byte_diff": []}
+    for (kr, dr), (ko, do) in zip(zip(*ref), zip(*out)):
+        n_pos = n_ori = 0
+        diffs = []
+        for start in range(0, len(kr), 512):  # (512, N) blocks
+            k = kr[start:start + 512]
+            near = np.abs(k[:, None, :3] - ko[None, :, :3]).max(-1) <= SIFT_TOL
+            ang = np.abs(np.angle(np.exp(1j * (k[:, None, 3].astype(np.float64)
+                                               - ko[None, :, 3]))))
+            both = near & (ang <= SIFT_TOL)
+            n_pos += int(near.any(1).sum())
+            n_ori += int(both.any(1).sum())
+            rows = np.nonzero(both.any(1))[0]
+            cols = np.argmax(both[rows], axis=1)
+            diffs.append(np.abs(dr[start + rows].astype(int) - do[cols].astype(int)))
+        d = np.concatenate(diffs) if diffs else np.zeros((0, 128), int)
+        shares["position"].append(n_pos / max(len(kr), 1))
+        shares["orientation"].append(n_ori / max(n_pos, 1))
+        shares["descriptor"].append(float((d <= 1).mean()) if d.size else 1.0)
+        shares["max_byte_diff"].append(int(d.max()) if d.size else 0)
+    return {**{k: min(v) for k, v in shares.items() if k != "max_byte_diff"},
+            "max_byte_diff": max(shares["max_byte_diff"]), "per_image": shares,
+            "keypoints": [len(k) for k in ref[0]], "out_keypoints": [len(k) for k in out[0]]}
+
+
+def sift_missed(agree: dict) -> list[str]:
+    """The SIFT_SHARES that a sift_agreement misses, as text."""
+    return [f"{k} {agree[k]:.4f} < {v}" for k, v in SIFT_SHARES.items() if agree[k] < v]
+
+
+def unrotated_descriptors(fm_stacked, xy, level, orientation, scale_px, H, W, window=16):
+    """Known-wrong descriptors: the sample grid is rotated, but the gradient
+    angles are not taken relative to the keypoint's orientation."""
+    from vit_colmap_tpu_torch.ops import sift
+
+    rel_np = sift._window_grid(window)
+    pts, gw = sift._descriptor_samples(xy, orientation, scale_px, rel_np)
+    samp = sift._sample_level_stacked(fm_stacked, pts, level, H, W)
+    return sift._descriptor_core(samp[..., 0] * gw[None, None], samp[..., 1], rel_np)
+
+
+def sift_rate(gray, reps: int = 3) -> dict:
+    """extract_sift on one batch, host to host: median seconds of ``reps``
+    warm calls and images a second."""
+    from vit_colmap_tpu_torch.ops.sift import extract_sift
+
+    extract_sift(gray, device=DEVICE, **sift_kwargs())
+    times = []
+    for _ in range(reps):
+        sync()
+        t = time.perf_counter()
+        extract_sift(gray, device=DEVICE, **sift_kwargs())
+        sync()
+        times.append(time.perf_counter() - t)
+    s = statistics.median(times)
+    return {"batch": int(gray.shape[0]), "size": tuple(gray.shape[1:]), "s": s,
+            "img_per_s": gray.shape[0] / s}
+
+
+def sift_phase(scene_dir: Path, main_dir: Path) -> dict:
+    """SIFT on the card against the port's CPU path on two rendered views
+    (SIFT_SHARES), the known-wrong unrotated descriptors against the same
+    bars (they must miss one), the rates at 480 x 640 and at the main
+    path's 1190 x 1596, and one call's kernel launches."""
+    from unittest import mock
+
+    import numpy as np
+
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.ops import sift
+    from vit_colmap_tpu_torch.utils.image_io import imread_gray
+
+    gray = np.stack([imread_gray(scene_dir / f"view_{i:03d}.png") for i in SIFT_VIEWS])
+    sync()
+    counts.clear()
+    card = sift.extract_sift(gray, device=DEVICE, **sift_kwargs())
+    expect_launches(dict(counts), {}, "sift")
+    cpu = sift.extract_sift(gray, device="cpu", **sift_kwargs())
+    agree = sift_agreement(cpu, card)
+    missed = sift_missed(agree)
+    with mock.patch.object(sift, "sift_descriptors_multilevel", unrotated_descriptors):
+        wrong = sift_agreement(cpu, sift.extract_sift(gray, device=DEVICE, **sift_kwargs()))
+    log(f"sift: card vs CPU on views {SIFT_VIEWS}: {agree} (bars {SIFT_SHARES}); "
+        f"known-wrong 'descriptor angles not rotated': {wrong} (must miss a bar)")
+    check(not missed, "sift: card vs CPU: " + "; ".join(missed))
+    if not sift_missed(wrong):
+        POWERLESS.append(f"sift 'descriptor angles not rotated': {wrong}")
+    main = np.stack([imread_gray(f) for f in sorted(main_dir.iterdir())[:4]])
+    rates = {"480x640": sift_rate(np.stack([imread_gray(scene_dir / f"view_{i:03d}.png")
+                                            for i in range(4)])),
+             "1190x1596": sift_rate(main)}
+    launched = (profiled(lambda: sift.extract_sift(gray, device=DEVICE, **sift_kwargs()))
+                if DEVICE == "cuda" else {})
+    log(f"sift: rates (batches of 4, host to host) {rates}; one call on 2 views "
+        f"{SIFT_VIEWS}: {launched}")
+    return {"card_vs_cpu": {k: agree[k] for k in SIFT_SHARES},
+            "wrong_descriptor_share": wrong["descriptor"], "rates": rates,
+            "launches": launched}
+
+
+def scene_quality(pipeline, scene_dir: Path) -> dict:
+    """The reference's bench_reconstruction fields for a Pipeline.run's
+    models, against the renderer's poses."""
+    from vit_colmap_tpu_torch.sfm.align import best_pose_errors, gt_poses_for_rendered_scene
+
+    recs = pipeline.reconstructions
+    if not recs:
+        return {"registered": 0, "points3d": 0}
+    pose = best_pose_errors(recs, gt_poses_for_rendered_scene(scene_dir))
+    biggest = max(recs.values(), key=lambda r: len(r.images))
+    lens = [len(p.track) for r in recs.values() for p in r.points3D.values()]
+    return {"registered": sum(len(r.images) for r in recs.values()),
+            "points3d": len(lens), "observations": int(sum(lens)),
+            "mean_track_length": sum(lens) / max(len(lens), 1),
+            "reproj_px": biggest.mean_reprojection_error(),
+            "rot_mean_deg": pose["pose_rot_err_deg_mean"] if pose else float("inf"),
+            "rot_max_deg": pose["pose_rot_err_deg_max"] if pose else float("inf"),
+            "center_rel_mean": pose["pose_center_err_rel_mean"] if pose else float("inf"),
+            "center_rel_max": pose["pose_center_err_rel_max"] if pose else float("inf"),
+            "aligned_cameras": pose["aligned_cameras"] if pose else 0}
+
+
+def scene_missed(q: dict) -> list[str]:
+    """The SCENE_BARS that ``q`` misses, as text."""
+    missed = []
+    if q["registered"] < SCENE_BARS["registered"]:
+        missed.append(f"registered {q['registered']} < {SCENE_BARS['registered']}")
+    for key in ("reproj_px", "rot_mean_deg", "rot_max_deg", "center_rel_mean"):
+        if not q.get(key, float("inf")) <= SCENE_BARS[key]:
+            missed.append(f"{key} {q.get(key)} > {SCENE_BARS[key]}")
+    return missed
+
+
+def scene_phase(work: Path, scene_dir: Path, K, render_s: float) -> dict:
+    """The rendered 50-view scene through Pipeline.run with SIFT (counts
+    cleared: kernel 2 launches, no other kernel), held to SCENE_BARS
+    against the renderer's poses; then the known-wrong SIFT without the
+    octave factor on the keypoints of octaves >= 1, which must miss one."""
+    from unittest import mock
+
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.ops import sift
+    from vit_colmap_tpu_torch.pipeline import Pipeline
+    from vit_colmap_tpu_torch.utils.config import Config
+
+    def run(tag: str):
+        config = Config()
+        config.extractor.extractor_type = "sift"
+        config.extractor.max_keypoints = SCENE_KEYPOINTS
+        config.camera.model = "PINHOLE"
+        config.camera.params = [float(K[0, 0]), float(K[1, 1]), float(K[0, 2]),
+                                float(K[1, 2])]
+        pipeline = Pipeline(config, device=DEVICE)
+        sync()
+        counts.clear()
+        t = time.perf_counter()
+        report = pipeline.run(scene_dir, work / f"scene_{tag}", work / f"scene_{tag}.db")
+        sync()
+        return pipeline, report, time.perf_counter() - t, dict(counts), config
+
+    pipeline, report, wall, launches, config = run("sift")
+    pairs = SCENE_VIEWS * (SCENE_VIEWS - 1) // 2
+    expect_launches(launches, {"match_topk2_colmax":
+                               math.ceil(pairs / config.matching.pair_batch)}, "scene-50")
+    quality = scene_quality(pipeline, scene_dir)
+    missed = scene_missed(quality)
+    stages = {"render": render_s, "extract": report["extract_s"], "match": report["match_s"],
+              "verify": report["verify_s"], "reconstruct": report["reconstruction_s"]}
+    log(f"scene-50: Pipeline.run in {wall:.1f} s, stage seconds {stages}, verification "
+        f"chunks {report['verify_chunks']}, launches {launches}; quality {quality} "
+        f"(bars {SCENE_BARS})")
+    check(not missed, "scene-50 against the renderer's poses: " + "; ".join(missed))
+    with mock.patch.object(sift, "OCTAVE_STEP", 1):
+        wrong_pipeline, _, wrong_wall, _, _ = run("wrong")
+    wrong_quality = scene_quality(wrong_pipeline, scene_dir)
+    wrong_missed = scene_missed(wrong_quality)
+    log(f"scene-50: known-wrong 'no octave factor on octaves >= 1' in {wrong_wall:.1f} s "
+        f"misses {len(wrong_missed)} bars: {wrong_missed}; quality {wrong_quality}")
+    if not wrong_missed:
+        POWERLESS.append(f"scene-50 'no octave factor': {wrong_quality}")
+    return {"stages": stages, "wall_s": wall, "quality": quality,
+            "launches": launches, "wrong_missed": len(wrong_missed)}
+
+
+def wire_phase(work: Path, rgb_extractor, weights: Path) -> dict:
+    """The YUV420 wire: both unpackers on the card against the CPU on the
+    main path's 8 images; ViTExtractor(transfer_format="yuv420c4")
+    extraction of them into a database (counts cleared: kernel 1 launches,
+    as on the main path's first run), its dense tokens against the rgb
+    extractor's (cosine per token), and both extractions' warm seconds."""
+    import numpy as np
+    import torch
+
+    from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.ops import transfer
+    from vit_colmap_tpu_torch.utils.config import CameraConfig
+    from vit_colmap_tpu_torch.utils.image_io import imread_rgb
+
+    img_dir = work / "images"
+    rgb = np.stack([imread_rgb(f) for f in sorted(img_dir.iterdir())])
+    t = time.perf_counter()
+    transfer.pack_batch_yuv420_c4(rgb)
+    pack_s = time.perf_counter() - t  # the host's share of the wire
+    errs = {}
+    for name, wire, fn in (("yuv420", transfer.pack_batch_yuv420(rgb), transfer.unpack_yuv420),
+                           ("yuv420c4", transfer.pack_batch_yuv420_c4(rgb),
+                            transfer.unpack_yuv420_c4)):
+        card = fn(torch.from_numpy(wire).to(DEVICE)).cpu()
+        errs[name] = (card - fn(torch.from_numpy(wire))).abs().max().item()
+    check(max(errs.values()) <= WIRE_UNPACK_TOL,
+          f"wire: unpack card vs CPU {errs} (bound {WIRE_UNPACK_TOL})")
+
+    yuv = ViTExtractor(weights_path=str(weights), backbone="vitb14",
+                       max_keypoints=MAX_KEYPOINTS, image_batch=IMAGE_BATCH,
+                       transfer_format="yuv420c4", device=DEVICE)
+    sync()
+    counts.clear()
+    yuv.extract(img_dir, work / "wire.db", CameraConfig().model)
+    sync()
+    launches = dict(counts)
+    expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS}, "wire")
+    batch = rgb[:IMAGE_BATCH]
+    a = rgb_extractor.dense_features(batch).float().reshape(-1, 768)
+    b = yuv.dense_features(yuv.to_wire(batch)).float().reshape(-1, 768)
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    cos_mean, cos_min = cos.mean().item(), cos.min().item()
+    check(cos_mean > WIRE_COS_MEAN and cos_min > WIRE_COS_MIN,
+          f"wire: yuv420c4 tokens vs rgb cosine mean {cos_mean}, min {cos_min}")
+    seconds = {}
+    for name, ex in (("rgb", rgb_extractor), ("yuv420c4", yuv)):
+        ex.extract(img_dir, work / f"wire_{name}_warm.db", CameraConfig().model)  # warm
+        sync()
+        t = time.perf_counter()
+        ex.extract(img_dir, work / f"wire_{name}.db", CameraConfig().model)
+        sync()
+        seconds[name] = time.perf_counter() - t
+    rates = {k: NUM_IMAGES / v for k, v in seconds.items()}
+    log(f"wire: unpack card vs CPU max abs err {errs} (bound {WIRE_UNPACK_TOL}); "
+        f"yuv420c4 extraction launches {launches}; tokens vs rgb cosine mean "
+        f"{cos_mean:.4f} (> {WIRE_COS_MEAN}), min {cos_min:.4f} (> {WIRE_COS_MIN}); warm "
+        f"extraction of {NUM_IMAGES} images, seconds {seconds}, img/s {rates}; host "
+        f"packing of the {NUM_IMAGES} images into yuv420c4 {pack_s:.3f} s")
+    return {"unpack_err": errs, "launches": launches, "cos_mean": cos_mean,
+            "cos_min": cos_min, "extract_s": seconds, "img_per_s": rates,
+            "host_pack_s": pack_s}
 
 
 def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
@@ -2179,10 +2573,12 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
     first_models = dict(pipeline.reconstructions)
     report = pipeline.run(img_dir, work / "out", work / "run2.db")
     sync()
-    log(f"times: warm run's verified pairs equal to the first run's: "
-        f"{verified_pairs(work / 'run1.db') == verified_pairs(work / 'run2.db')}; models "
+    same_pairs = verified_pairs(work / "run1.db") == verified_pairs(work / "run2.db")
+    log(f"times: warm run's verified pairs equal to the first run's: {same_pairs}; models "
         f"(registered images, points) first {model_sizes(first_models)}, warm "
         f"{model_sizes(pipeline.reconstructions)}")
+    check(not same_pairs or model_sizes(first_models) == model_sizes(pipeline.reconstructions),
+          "the warm run mapped equal verified pairs into another model")
     t = time.perf_counter()
     fixedmax_extractor.extract(img_dir, work / "fixedmax2.db", CameraConfig().model)
     sync()
@@ -2331,6 +2727,10 @@ def main() -> int:
         verification = verification_phase()
         mapper = mapper_phase(work)
         card_cpu = card_cpu_phase(work)
+        scene_dir, scene_K, render_s = render_phase(work)
+        sift_result = sift_phase(scene_dir, work / "images")
+        scene = scene_phase(work, scene_dir, scene_K, render_s)
+        wire = wire_phase(work, extractor, work / "vitb14_random.pth")
         times, rates, split, f32_ms, matcher = times_phase(
             pipeline, work, work / "images", inputs_main, fixedmax_extractor, int8_ops,
             max_mhz, sass["match_topk2_int8"]["main_loop_opcodes"])
@@ -2373,6 +2773,7 @@ def main() -> int:
     log(f"done: build {build_s:.1f} s, database {db_counts}, main-path verification "
         f"{report['verify_s']} s (chunks {report['verify_chunks']}), calibrated "
         f"verification {verification}, mapper {mapper}, card vs CPU {card_cpu}, "
+        f"sift {sift_result}, scene-50 {scene}, wire {wire}, "
         f"rates {rates}, "
         f"int8 rows differing from the float matcher {int8_vs_float}, saliency "
         f"{saliency}, attention bound split {split}, f32 attention ms {f32_ms}, "

@@ -268,3 +268,25 @@ def test_singular_system_rejects_steps_like_jax():
     np.testing.assert_array_equal(ours[0].numpy(), a["cam_params"])
     np.testing.assert_array_equal(ours[3].numpy(), a["points"])
     np.testing.assert_array_equal(np.asarray(ref[0]), a["cam_params"])
+
+
+@pytest.mark.parametrize("shape", [(), (3,), (3, 3)])
+def test_segment_sums_equal_index_add(shape):
+    """The sorted segment sums of BA equal ``index_add_`` on the CPU, where
+    both add each segment's rows in their order, bit for bit, empty
+    segments included; the sort is made once per key."""
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, 40, 500))
+    ids[ids == 7] = 8  # segment 7 stays empty
+    data = torch.from_numpy(rng.standard_normal((500, *shape)).astype(np.float32))
+    seg = bundle._SegmentSums()
+    calls = []
+
+    def lazy_ids():
+        calls.append(1)
+        return ids
+
+    out = seg("k", data, lazy_ids, 41)
+    ref = torch.zeros((41, *shape)).index_add_(0, ids, data)
+    assert torch.equal(out, ref) and not out[7].any() and not out[40].any()
+    assert torch.equal(seg("k", 2 * data, lazy_ids, 41), 2 * ref) and len(calls) == 1

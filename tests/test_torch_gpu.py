@@ -407,7 +407,7 @@ def _ba_problem(device, n_pts=200, n_img=6, seed=0):
 def test_bundle_adjust_on_cuda_equals_cpu(cuda_device, solver):
     """LM on the card and on the CPU from the same problem: the mean squared
     residual within 1e-4 relative and the parameters within 1e-3 (the
-    card's segment sums are float atomics in another order)."""
+    card's segment reductions add in another order than the CPU's)."""
     from vit_colmap_tpu_torch.sfm import bundle
 
     cpu = bundle.bundle_adjust(_ba_problem("cpu"), iters=20, solver=solver)
@@ -422,13 +422,11 @@ def test_bundle_adjust_on_cuda_equals_cpu(cuda_device, solver):
 def test_bundle_adjust_ignores_global_tf32(cuda_device, monkeypatch):
     """With the global TF32 flag on, every product and the solve of the
     Schur step see it off, and the caller's setting is back afterwards.
-    The results of the two runs are compared within the card's run-to-run
-    spread: the atomic segment sums add in another order on each run, and
-    LM's step choices amplify that to a few 1e-4 in the points after 10
-    iterations, between two runs with the flag off as much as between the
-    flag off and on, so the bounds are 1e-4 relative on the mean squared
-    residual and 1e-3 on the points; the spies, not the numbers, show the
-    flag off."""
+    The results of the two runs are compared within the bounds kept from
+    when the card's segment sums were float atomics (1e-4 relative on the
+    mean squared residual, 1e-3 on the points); the spies, not the numbers,
+    show the flag off, and ``test_mapper_is_deterministic_on_cuda`` holds
+    two runs to the same bits."""
     from vit_colmap_tpu_torch.sfm import bundle
 
     seen = []
@@ -518,3 +516,90 @@ def test_pnp_ignores_global_tf32(cuda_device, monkeypatch):
     assert torch.equal(on.inlier_mask, off.inlier_mask)
     assert (on.R - off.R).abs().max().item() <= 1e-6
     assert (on.t - off.t).abs().max().item() <= 1e-6
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its scenes and its SIFT agreement rule)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_scenes", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.gpu
+def test_mapper_is_deterministic_on_cuda(cuda_device, tmp_path):
+    """tests/test_sfm_scale.py's 12-view scene mapped twice on the card:
+    the same images and points, with bit-equal poses and positions (BA's
+    segment sums reduce each segment in a fixed order)."""
+    from vit_colmap_tpu_torch.sfm.incremental import incremental_mapping
+    from vit_colmap_tpu_torch.utils.config import ReconstructionConfig
+
+    cs = _chip_smoke()
+    _, K, views = cs.scale_scene()
+    cs.write_views_db(tmp_path / "scale.db", K, (800, 600), views, 20)
+    cfg = ReconstructionConfig(min_num_matches=15, ba_local_iters=10, ba_global_iters=20)
+    runs = [incremental_mapping(tmp_path / "scale.db", tmp_path, tmp_path / f"run{i}", cfg,
+                                device=cuda_device)[0] for i in range(2)]
+    assert len(runs[0].images) == cs.SCALE_VIEWS
+    assert cs.models_bit_equal(*runs)
+
+
+@pytest.mark.gpu
+def test_segment_sums_are_deterministic_on_cuda(cuda_device):
+    """BA's segment sums on the card: the same bits on every call, and
+    index_add_'s sums within float rounding."""
+    from vit_colmap_tpu_torch.sfm import bundle
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    ids = torch.randint(0, 300, (200_000,), generator=g, device=cuda_device)
+    data = torch.randn(200_000, 3, generator=g, device=cuda_device)
+    seg = bundle._SegmentSums()
+    first = seg("k", data, ids, 300)
+    assert all(torch.equal(first, bundle._SegmentSums()("k", data, ids, 300))
+               for _ in range(3))
+    ref = torch.zeros(300, 3, device=cuda_device).index_add_(0, ids, data)
+    assert (first - ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_sift_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """extract_sift on two rendered 240 x 320 views, card against CPU, held
+    to chip_smoke.py's SIFT_SHARES: 99% of the CPU's keypoints have a card
+    keypoint within 0.01 px and scale, 97% of those one within 0.01 rad too,
+    and over those pairs 99% of the descriptor bytes within 1 level."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.dataloader.synthetic_benchmark import render_multiview_scene
+    from vit_colmap_tpu_torch.ops.sift import extract_sift
+    from vit_colmap_tpu_torch.utils.image_io import imread_gray
+
+    cs = _chip_smoke()
+    render_multiview_scene(tmp_path, n_cams=2, size=(240, 320), focal=300.8, seed=7)
+    gray = np.stack([imread_gray(tmp_path / f"view_{i:03d}.png") for i in range(2)])
+    kw = dict(max_keypoints=1024, contrast_thresh=0.02)
+    cpu = extract_sift(gray, device="cpu", **kw)
+    card = extract_sift(gray, device=cuda_device, **kw)
+    agree = cs.sift_agreement(cpu, card)
+    assert min(agree["keypoints"]) > 50 and not cs.sift_missed(agree), agree
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["yuv420", "yuv420c4"])
+def test_unpack_on_cuda_matches_cpu(cuda_device, fmt):
+    """The wire unpackers on the card against the CPU, within 1e-3 of the
+    [0, 255] RGB."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.ops import transfer
+
+    rgb = np.random.default_rng(0).integers(0, 256, (2, 70, 84, 3), dtype=np.uint8)
+    pack, unpack = ((transfer.pack_batch_yuv420, transfer.unpack_yuv420) if fmt == "yuv420"
+                    else (transfer.pack_batch_yuv420_c4, transfer.unpack_yuv420_c4))
+    wire = torch.from_numpy(pack(rgb))
+    for full_range in (False, True):
+        card = unpack(wire.to(cuda_device), full_range=full_range).cpu()
+        assert (card - unpack(wire, full_range=full_range)).abs().max().item() <= 1e-3

@@ -59,9 +59,9 @@ def _rows(db_path, table):
         con.close()
 
 
-def _extractors(tmp_path):
+def _extractors(tmp_path, **extra):
     kw = dict(backbone="tiny", max_keypoints=128, image_batch=2,
-              pca_path=str(tmp_path / "pca.npz"), attn_impl="xla")
+              pca_path=str(tmp_path / "pca.npz"), attn_impl="xla", **extra)
     jex = JaxViTExtractor(dtype=jnp.float32, **kw)
     # Flax's init (LayerScale 1e-5, unit/zero LayerNorms, zero cls) makes the
     # channel mean of the final LayerNorm's output, the saliency input, pure
@@ -143,6 +143,44 @@ def test_pipeline_without_cross_check_matches_jax(tmp_path, tiny_backbone, image
     assert n_cross < sum(r[1] for r in matches)  # the check removes some
 
 
+def test_pipeline_yuv420c4_matches_jax(tmp_path, tiny_backbone, images, monkeypatch):
+    """``Pipeline.run`` with ``transfer_format="yuv420c4"`` (4-bit-chroma
+    wire packed on the host, unpacked on the device) in both packages: the
+    same keypoints (within 5e-3 px: the unpack's chroma upsampling rounds
+    its last bit differently, which the sub-cell refinement amplifies),
+    descriptors (within +-1) and matches."""
+    from vit_colmap_tpu.pipeline import Pipeline as JaxPipeline
+    from vit_colmap_tpu.utils.config import Config as JaxConfig
+
+    jex, tex = _extractors(tmp_path, transfer_format="yuv420c4")
+    jex.extract(images, tmp_path / "fit.db", "SIMPLE_PINHOLE")  # saves the PCA
+    tex._pca = None
+    tex._ensure_pca([])
+    dbs = {}
+    for name, pipe_cls, cfg_cls, ex, kw in (
+        ("jax", JaxPipeline, JaxConfig, jex, {}),
+        ("torch", Pipeline, Config, tex, {"device": "cpu"}),
+    ):
+        cfg = cfg_cls()
+        cfg.extractor.transfer_format = "yuv420c4"
+        cfg.matching.do_verification = False
+        cfg.do_reconstruction = False
+        pipe = pipe_cls(cfg, **kw)
+        monkeypatch.setattr(pipe, "_make_extractor", lambda ex=ex: ex)
+        dbs[name] = tmp_path / f"{name}_pipe.db"
+        pipe.run(images, tmp_path / f"{name}_out", dbs[name])
+    with JaxDatabase.open_database(dbs["jax"]) as a, \
+            ColmapDatabase.open_database(dbs["torch"]) as b:
+        for i in sorted(a.read_images()):
+            ka, kb = a.read_keypoints(i), b.read_keypoints(i)
+            assert ka.shape == kb.shape and len(ka) > 0
+            np.testing.assert_allclose(kb, ka, atol=5e-3)
+            da, db_ = a.read_descriptors(i), b.read_descriptors(i)
+            assert np.abs(da.astype(int) - db_.astype(int)).max() <= 1
+    matches = _rows(dbs["torch"], "matches")
+    assert matches == _rows(dbs["jax"], "matches") and len(matches) > 0
+
+
 def test_match_from_database_equals_device_handoff(tmp_path, tiny_backbone, images):
     _, tex = _extractors(tmp_path)
     db = tmp_path / "t.db"
@@ -168,10 +206,10 @@ def test_pipeline_cli_runs_slice_on_cpu(tmp_path, tiny_backbone, images):
 
 @pytest.mark.parametrize("skip", [(), ("verification",)])
 def test_unported_stages_raise(tmp_path, images, skip):
-    """An extractor the port lacks (SIFT) raises before any stage runs, with
-    verification on or skipped and reconstruction on."""
+    """An extractor the port lacks (the hybrid) raises before any stage
+    runs, with verification on or skipped and reconstruction on."""
     cfg = Config()
-    cfg.extractor.extractor_type = "sift"
+    cfg.extractor.extractor_type = "hybrid"
     cfg.matching.do_verification = "verification" not in skip
     cfg.do_reconstruction = True
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -178,3 +178,33 @@ def test_shard_descriptors_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         match_exhaustive(tmp_path / "s.db", MatchingConfig(shard_descriptors=True),
                          device="cpu")
+
+
+def test_run_returns_report_when_metrics_export_fails(tmp_path, monkeypatch):
+    """A results directory that cannot be written (under a read-only
+    directory, and under a regular file, which stops root too) costs the
+    metrics, not the run: ``run`` logs the failure and returns its report,
+    as the reference's ``extract_and_export_metrics`` does."""
+    image_dir = tmp_path / "images"
+    make_checkerboards(image_dir)
+    locked = tmp_path / "locked"
+    locked.mkdir()
+    (locked / "not_a_dir").write_text("")
+    locked.chmod(0o555)
+    config = Config()
+    config.extractor.extractor_type = "dummy"
+    config.do_reconstruction = False
+    from vit_colmap_tpu_torch.pipeline import run_pipeline
+
+    logged = []
+    monkeypatch.setattr(run_pipeline.logger, "exception", logged.append)
+    try:
+        report = Pipeline(config, device="cpu").run(
+            image_dir=image_dir, output_dir=tmp_path / "out", db_path=tmp_path / "db.db",
+            dataset="smoke", scene="checker", results_dir=locked / "not_a_dir" / "results")
+    finally:
+        locked.chmod(0o755)
+    assert report is not None and report["num_images"] == 3
+    assert report["verify_s"] >= 0
+    assert logged == ["Metrics extraction failed"]
+    assert not (locked / "not_a_dir" / "results").exists()

@@ -8,8 +8,14 @@ the +0.5 patch-centre offset, default intrinsics f = max(w, h), and the
 directory -> COLMAP database contract of ``extract()``.  Descriptors stay on
 the device for matching (``device_cache``).
 
-Not ported yet (raise): ``transfer_format`` other than "rgb",
-``quantize="int8"``, orbax checkpoint directories as ``weights_path``.
+``transfer_format`` "yuv420" or "yuv420c4" sends each batch to the card as
+that wire format (``ops/transfer.py``: packed on the host, cv2's studio
+range, and unpacked to RGB on the card before the backbone), as the
+reference's cv2 path does.
+
+Not ported yet (raise): ``quantize="int8"``, orbax checkpoint directories
+as ``weights_path``, and the reference's native JPEG decoder (full-range
+I420 straight from libjpeg).
 """
 
 from __future__ import annotations
@@ -40,6 +46,12 @@ from vit_colmap_tpu_torch.ops.interpolate import (
     quantize_descriptors_signed,
 )
 from vit_colmap_tpu_torch.ops.scoring import compute_saliency
+from vit_colmap_tpu_torch.ops.transfer import (
+    pack_batch_yuv420,
+    pack_batch_yuv420_c4,
+    unpack_yuv420,
+    unpack_yuv420_c4,
+)
 from vit_colmap_tpu_torch.utils.config import CameraConfig
 from vit_colmap_tpu_torch.utils.image_io import imread_rgb, resize_area
 
@@ -77,10 +89,8 @@ class ViTExtractor(BaseExtractor):
         emit_float_desc: bool = False,
         device=None,
     ):
-        if transfer_format != "rgb":
-            raise NotImplementedError(
-                f"transfer_format={transfer_format!r} is not ported yet; see ROADMAP.md"
-            )
+        if transfer_format not in ("rgb", "yuv420", "yuv420c4"):
+            raise ValueError(f"unknown transfer_format {transfer_format!r}")
         if quantize != "none":
             raise NotImplementedError("quantize='int8' is not ported yet; see ROADMAP.md")
         self.device = resolve_device(device)
@@ -131,10 +141,26 @@ class ViTExtractor(BaseExtractor):
         self.device_cache: dict[str, tuple[torch.Tensor, int]] = {}
 
     # -------------------------------------------------------------- device
+    def to_wire(self, images_u8: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) uint8 RGB -> the batch in ``transfer_format``, packed
+        on the host."""
+        if self.transfer_format == "yuv420":
+            return pack_batch_yuv420(np.asarray(images_u8))
+        if self.transfer_format == "yuv420c4":
+            return pack_batch_yuv420_c4(np.asarray(images_u8))
+        return images_u8
+
     @torch.no_grad()
-    def dense_features(self, images_u8) -> torch.Tensor:
-        """(B, H, W, 3) uint8 (H, W multiples of 14) -> (B, gh, gw, C) f32."""
-        x = preprocess(torch.as_tensor(images_u8).to(self.device))
+    def dense_features(self, wire) -> torch.Tensor:
+        """A batch in ``transfer_format`` (for "rgb" (B, H, W, 3) uint8; H, W
+        multiples of 14) -> (B, gh, gw, C) f32; YUV wires are unpacked to
+        RGB on the device first."""
+        wire = torch.as_tensor(wire).to(self.device)
+        if self.transfer_format == "yuv420":
+            wire = unpack_yuv420(wire)
+        elif self.transfer_format == "yuv420c4":
+            wire = unpack_yuv420_c4(wire)
+        x = preprocess(wire)
         out = self.model(x)
         gh, gw = out["grid"]
         return out["x_norm_patchtokens"].reshape(x.shape[0], gh, gw, -1)
@@ -164,10 +190,12 @@ class ViTExtractor(BaseExtractor):
             return xy, sc, valid, desc_u8, l2_normalize(dq)
         return xy, sc, valid, desc_u8
 
-    def extract_batch_async(self, images_u8):
+    def extract_batch_async(self, images_u8, packed: bool = False):
         """One batch -> device tensors (xy grid coords, scores, valid, uint8
-        desc[, f32 desc]); the host is not synchronized."""
-        fmap = self.dense_features(images_u8)
+        desc[, f32 desc]); the host is not synchronized.  ``packed=True``
+        means ``images_u8`` is already in ``transfer_format`` (for example
+        from ``to_wire``); otherwise it is RGB and is packed here."""
+        fmap = self.dense_features(images_u8 if packed else self.to_wire(images_u8))
         if self._pca is None:
             flat = fmap.float().reshape(-1, fmap.shape[-1])
             self._pca = fit_pca(flat, self.descriptor_dim)
@@ -192,7 +220,7 @@ class ViTExtractor(BaseExtractor):
 
         def dense_fn(batch: np.ndarray) -> torch.Tensor:
             step = max(1, self.image_batch)
-            return torch.cat([self.dense_features(batch[i : i + step])
+            return torch.cat([self.dense_features(self.to_wire(batch[i : i + step]))
                               for i in range(0, len(batch), step)])
 
         self._pca = resolve_pca(

@@ -4,8 +4,8 @@ Counterpart of ``vit_colmap_tpu/pipeline/run_pipeline.py``:
 ``Pipeline(config).run(image_dir, output_dir, db_path, dataset, scene,
 results_dir)`` extracts features into a COLMAP database, matches and
 verifies every pair, and exports the metrics, with the same flags and the
-same per-stage report.  Ported so far: the ``vit`` and ``dummy``
-extractors, matching, geometric verification and incremental
+same per-stage report.  Ported so far: the ``vit``, ``sift`` (and its
+alias ``colmap_sift``) and ``dummy`` extractors, matching, geometric verification and incremental
 reconstruction (stage 3, on by default, written to ``<output>/sparse/<idx>/``;
 ``--skip-reconstruction`` turns it off).
 """
@@ -35,10 +35,10 @@ class Pipeline:
 
     def _check_ported(self) -> None:
         c = self.config
-        if c.extractor.extractor_type not in ("vit", "dummy"):
+        if c.extractor.extractor_type not in ("vit", "sift", "colmap_sift", "dummy"):
             raise NotImplementedError(
                 f"extractor {c.extractor.extractor_type!r} is not ported yet "
-                "(only 'vit' and 'dummy'); see ROADMAP.md"
+                "(only 'vit', 'sift', 'colmap_sift' and 'dummy'); see ROADMAP.md"
             )
 
     def _make_extractor(self):
@@ -50,6 +50,11 @@ class Pipeline:
             from vit_colmap_tpu_torch.features.dummy_extractor import DummyExtractor
 
             self._extractors[key] = DummyExtractor(step=32, device=self.device)
+        elif ecfg.extractor_type in ("sift", "colmap_sift"):
+            from vit_colmap_tpu_torch.features.sift_extractor import SiftExtractor
+
+            self._extractors[key] = SiftExtractor(max_keypoints=ecfg.max_keypoints,
+                                                  device=self.device)
         else:
             from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
 
@@ -159,16 +164,20 @@ class Pipeline:
                 "  [2] match+verify  %.2fs — %d matched pairs, %d verified, %d raw matches",
                 t_match, db.num_matched_pairs, db.num_verified_pairs, db.num_matches,
             )
-        m = MetricsExtractor(db_path, db_path.parent).extract_matching_metrics(
-            self.config.reconstruction.min_num_matches
-        )
-        logger.info(
-            "      inlier ratio %.3f | verification rate %.1f%% | "
-            "pairs >= %d inliers: %d | config dist %s",
-            m.inlier_ratio, m.verification_rate,
-            self.config.reconstruction.min_num_matches, m.pairs_above_threshold,
-            m.config_distribution,
-        )
+        # A failed metric read costs the summary one line, not the run.
+        try:
+            m = MetricsExtractor(db_path, db_path.parent).extract_matching_metrics(
+                self.config.reconstruction.min_num_matches
+            )
+            logger.info(
+                "      inlier ratio %.3f | verification rate %.1f%% | "
+                "pairs >= %d inliers: %d | config dist %s",
+                m.inlier_ratio, m.verification_rate,
+                self.config.reconstruction.min_num_matches, m.pairs_above_threshold,
+                m.config_distribution,
+            )
+        except Exception:
+            logger.debug("matching-metric summary unavailable", exc_info=True)
         if self.reconstructions:
             logger.info(
                 "  [3] reconstruction %.2fs — %d models, %d registered images, %d 3D points",
@@ -185,20 +194,26 @@ class Pipeline:
         dataset: str,
         scene: str,
         results_dir: Path,
-    ) -> MetricsResult:
+    ) -> Optional[MetricsResult]:
         """Feature, matching and reconstruction metrics (the last run's
         models, none when reconstruction was skipped), written as
         ``{results_dir}/{dataset}/{scene}/{extractor}.json`` and appended to
-        ``{results_dir}/summary.csv``."""
-        result = MetricsExtractor(db_path, output_dir).extract_all_metrics(
-            dataset=dataset,
-            scene=scene,
-            extractor_type=self.config.extractor.extractor_type,
-            config=self.config.to_dict(),
-            reconstructions=self.reconstructions or None,
-        )
-        export_metrics(result, results_dir)
-        return result
+        ``{results_dir}/summary.csv``; None, after logging the error, when
+        they cannot be computed or written, so that ``run`` still returns
+        its report."""
+        try:
+            result = MetricsExtractor(db_path, output_dir).extract_all_metrics(
+                dataset=dataset,
+                scene=scene,
+                extractor_type=self.config.extractor.extractor_type,
+                config=self.config.to_dict(),
+                reconstructions=self.reconstructions or None,
+            )
+            export_metrics(result, results_dir)
+            return result
+        except Exception:
+            logger.exception("Metrics extraction failed")
+            return None
 
 
 def main(argv: Optional[list[str]] = None) -> None:

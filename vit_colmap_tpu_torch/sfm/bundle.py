@@ -14,15 +14,17 @@ parameters, residuals, solvers and step rule:
   ``jax.jacfwd``,
 * ``solver="schur"`` eliminates the points with batched closed-form 3x3
   inverses and solves the dense reduced camera system with one
-  ``torch.linalg.solve``; ``solver="cg"`` runs Jacobi-preconditioned
+  ``torch.linalg.solve_ex``; ``solver="cg"`` runs Jacobi-preconditioned
   conjugate gradients with JAX's stopping rule,
 * the step is accepted from one batched evaluation of five step scales.
 
 The LM loop is a host loop with one device-to-host sync per iteration (its
 early exit); the CG loop runs a fixed number of steps with the converged
-state frozen, so it needs no sync.  Segment sums are ``index_add_``, float
-atomics on the card, so two card runs may differ in the last bits.  Every
-product runs inside ``device.exact_f32_matmuls`` (no TF32).
+state frozen, so it needs no sync.  Segment sums sort their ids once per
+call and reduce each segment in a fixed order (``_SegmentSums``), so two
+runs on the card give the same bits, as ``jax.ops.segment_sum`` does
+(``index_add_`` would add with float atomics there).  Every product runs
+inside ``device.exact_f32_matmuls`` (no TF32).
 """
 
 from __future__ import annotations
@@ -184,25 +186,53 @@ def _per_obs_jacobians(cam_params, focal_log, dist, points, problem, huber_delta
                     problem.obs_valid.to(cp.dtype))  # (n_obs, 2, 12), (n_obs, 2)
 
 
-def _segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device)
-    return out.index_add_(0, ids, data)
+class _SegmentSums:
+    """Segment sums over ids that stay fixed for a bundle-adjustment call,
+    in the same order on every run and device.
+
+    The first sum under a key sorts its ids (stable, so each segment keeps
+    the order of its rows) and finds the segments' lengths without a host
+    sync; every sum is then a gather and one segmented reduction.
+    ``index_add_`` would add with float atomics on the card, in an order
+    that changes from run to run."""
+
+    def __init__(self):
+        self._index: dict = {}
+
+    def __call__(self, key: str, data: torch.Tensor, ids, n: int) -> torch.Tensor:
+        """Sum the rows of ``data`` into ``n`` segments; ``ids`` (a tensor, or
+        a function giving it, called only on the key's first use) holds each
+        row's segment."""
+        if key not in self._index:
+            flat = (ids() if callable(ids) else ids).reshape(-1)
+            sorted_ids, perm = torch.sort(flat, stable=True)
+            bounds = torch.searchsorted(
+                sorted_ids, torch.arange(n + 1, device=flat.device, dtype=flat.dtype))
+            self._index[key] = (perm, bounds[1:] - bounds[:-1])
+        perm, lengths = self._index[key]
+        return torch.segment_reduce(data[perm], "sum", lengths=lengths, axis=0,
+                                    unsafe=True)
 
 
-def _jtj_diag(cam_params, focal_log, dist, points, problem: BAProblem, huber_delta):
+def _jtj_diag(cam_params, focal_log, dist, points, problem: BAProblem, huber_delta,
+              seg: Optional[_SegmentSums] = None):
     """Exact diag(JᵀJ) from per-observation Jacobians and segment sums.
 
     As in the reference, the Huber weight is differentiated here (not
     detached): this diagonal only damps and preconditions the CG path."""
+    seg = seg or _SegmentSums()
     n_img, n_cam, n_pts = cam_params.shape[0], focal_log.shape[0], points.shape[0]
     J, _ = _per_obs_jacobians(cam_params, focal_log, dist, points, problem,
                               huber_delta, detach_weight=False)
     sq = torch.sum(J * J, dim=1)  # (n_obs, 12)
-    obs_focal = problem.cam_of_img[problem.obs_cam]
-    cam_diag = _segment_sum(sq[:, :6], problem.obs_cam, n_img)
-    focal_diag = _segment_sum(sq[:, 6], obs_focal, n_cam)
-    dist_diag = _segment_sum(sq[:, 7:9], obs_focal, n_cam)
-    pt_diag = _segment_sum(sq[:, 9:], problem.obs_point, n_pts)
+
+    def obs_focal():
+        return problem.cam_of_img[problem.obs_cam]
+
+    cam_diag = seg("cam", sq[:, :6], problem.obs_cam, n_img)
+    focal_diag = seg("focal", sq[:, 6], obs_focal, n_cam)
+    dist_diag = seg("focal", sq[:, 7:9], obs_focal, n_cam)
+    pt_diag = seg("point", sq[:, 9:], problem.obs_point, n_pts)
     return torch.cat([cam_diag.reshape(-1), focal_diag, dist_diag.reshape(-1),
                       pt_diag.reshape(-1)])
 
@@ -245,11 +275,13 @@ def _camera_columns(problem: BAProblem, n_img: int) -> torch.Tensor:
 
 
 def _schur_step(x, lam, unpack, problem: BAProblem, huber_delta, col_free, free_mask,
-                n_img: int, n_cam: int, n_pts: int) -> torch.Tensor:
+                n_img: int, n_cam: int, n_pts: int,
+                seg: Optional[_SegmentSums] = None) -> torch.Tensor:
     """One damped Gauss-Newton step via the point-eliminating Schur
     complement: points are eliminated with batched closed-form 3x3 inverses,
     the reduced camera system (M = 6*n_img + 3*n_cam) is assembled densely
     with segment sums and solved with one dense factorization."""
+    seg = seg or _SegmentSums()
     M = 6 * n_img + 3 * n_cam
     cam, focal, dist, pts = unpack(x)
     J, r = _obs_jacobians(cam, focal, dist, pts, problem, huber_delta)
@@ -263,13 +295,13 @@ def _schur_step(x, lam, unpack, problem: BAProblem, huber_delta, col_free, free_
     Atr = torch.einsum("odi,od->oi", A, r)  # (n_obs, 9)
     Btr = torch.einsum("odx,od->ox", B, r)  # (n_obs, 3)
 
-    keys_cc = (idx_c[:, :, None] * M + idx_c[:, None, :]).reshape(-1)
-    Hcc = _segment_sum(AtA.reshape(-1), keys_cc, M * M).reshape(M, M)
-    keys_w = (problem.obs_point[:, None] * M + idx_c).reshape(-1)
-    W = _segment_sum(AtB.reshape(-1, 3), keys_w, n_pts * M).reshape(n_pts, M, 3)
-    Hpp = _segment_sum(BtB, problem.obs_point, n_pts)
-    g_c = _segment_sum(Atr.reshape(-1), idx_c.reshape(-1), M)
-    g_p = _segment_sum(Btr, problem.obs_point, n_pts)
+    Hcc = seg("cc", AtA.reshape(-1), lambda: idx_c[:, :, None] * M + idx_c[:, None, :],
+              M * M).reshape(M, M)
+    W = seg("w", AtB.reshape(-1, 3), lambda: problem.obs_point[:, None] * M + idx_c,
+            n_pts * M).reshape(n_pts, M, 3)
+    Hpp = seg("point", BtB, problem.obs_point, n_pts)
+    g_c = seg("c", Atr.reshape(-1), idx_c, M)
+    g_p = seg("point", Btr, problem.obs_point, n_pts)
 
     # Marquardt damping (lam * diag) + a floor so empty point blocks stay
     # invertible.
@@ -348,19 +380,20 @@ def _cg(matvec, b: torch.Tensor, precond: torch.Tensor, maxiter: int, tol: float
 
 
 def _cg_step(x, lam, unpack, problem: BAProblem, huber_delta, free_mask, cg_iters: int,
-             n_img: int, n_cam: int) -> torch.Tensor:
+             n_img: int, n_cam: int, seg: Optional[_SegmentSums] = None) -> torch.Tensor:
     """One damped Gauss-Newton step by Jacobi-preconditioned CG on
     (JᵀJ + lam diag) dx = -Jᵀr, with J applied through the per-observation
     Jacobians (gather for J v, scatter-add for Jᵀ u)."""
+    seg = seg or _SegmentSums()
     cam, focal, dist, pts = unpack(x)
     J, r = _obs_jacobians(cam, focal, dist, pts, problem, huber_delta)
-    diag = torch.clamp(_jtj_diag(cam, focal, dist, pts, problem, huber_delta), min=1e-6)
+    diag = torch.clamp(_jtj_diag(cam, focal, dist, pts, problem, huber_delta, seg),
+                       min=1e-6)
     cols = _param_columns(problem, n_img, n_cam)
-    flat_cols = cols.reshape(-1)
 
     def jt(u):  # Jᵀ u for u (n_obs, 2)
-        return torch.zeros_like(x).index_add_(
-            0, flat_cols, torch.einsum("odk,od->ok", J, u).reshape(-1))
+        return seg("param", torch.einsum("odk,od->ok", J, u).reshape(-1), cols,
+                   x.shape[0])
 
     def matvec(v):
         v = v * free_mask
@@ -424,14 +457,15 @@ def bundle_adjust(problem: BAProblem, iters: int = 20, cg_iters: int = 50,
     x = pack(problem.cam_params, problem.focal_log, problem.dist, problem.points)
     lam = torch.tensor(1e-4, dtype=f32, device=dev)
     n_iter = 0
+    seg = _SegmentSums()  # the ids are the problem's: sorted once per call
     with exact_f32_matmuls():
         while n_iter < iters:
             if solver == "schur":
                 dx = _schur_step(x, lam, unpack, problem, huber_delta, col_free,
-                                 free_mask, n_img, n_cam, n_pts)
+                                 free_mask, n_img, n_cam, n_pts, seg)
             else:
                 dx = _cg_step(x, lam, unpack, problem, huber_delta, free_mask,
-                              cg_iters, n_img, n_cam)
+                              cg_iters, n_img, n_cam, seg)
             # Backtracking over the step scales in one batched evaluation;
             # argmin takes the first of equal costs.
             costs = batched_cost(scales, x, dx)

@@ -60,7 +60,7 @@ class MatchingConfig:
     # "unsigned" (SIFT-style) or "signed" ([-1, 1] <-> [0, 255], ViT family)
     descriptor_encoding: str = "unsigned"
     pair_batch: int = 16  # image pairs matched per batch
-    use_pallas: Optional[bool] = None  # None/True: the kernel; False: not ported
+    use_pallas: Optional[bool] = None  # None/True: the kernel; False: match_pairs_batched
     shard_descriptors: bool = False
     # Geometric verification (ops/ransac.py)
     do_verification: bool = True

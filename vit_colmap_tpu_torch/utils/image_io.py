@@ -11,6 +11,11 @@ the standard library (``zlib``) and numpy only:
 * Anything else (JPEG, interlaced or palette PNG, 16-bit) raises
   ``NotImplementedError``; a damaged file raises ``ValueError``.
 
+``imread_gray`` takes the place of ``cv2.imread(..., cv2.IMREAD_GRAYSCALE)``
+with OpenCV's two conversions: a colour PNG goes through libpng's
+``png_set_rgb_to_gray`` (BT.601 weights in 15-bit fixed point, truncated), a
+PPM through ``cvtColor`` (14-bit fixed point, rounded).
+
 ``resize_area`` is ``INTER_AREA`` for downscaling: each output pixel is the
 area-weighted mean of the input pixels its footprint overlaps, built as two
 separable weight matrices.
@@ -46,6 +51,36 @@ def imread_rgb(path) -> np.ndarray:
     if img.shape[-1] in (1, 2):  # gray (+ alpha): replicate, drop alpha
         return np.repeat(img[..., :1], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def imread_gray(path) -> np.ndarray:
+    """Decode an image file into (H, W) uint8 gray, as
+    ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` does."""
+    data = Path(path).read_bytes()
+    if data.startswith(PNG_SIGNATURE):
+        img = decode_png(data)
+        if img.shape[-1] <= 2:  # gray (+ alpha): the gray samples
+            return np.ascontiguousarray(img[..., 0])
+        # libpng's rgb_to_gray with OpenCV's (0.299, 0.587): coefficients
+        # 29900 * 32768 // 100000 and 58700 * 32768 // 100000, blue the rest
+        # of 32768, the sum shifted down (truncated); grey pixels pass as is.
+        rgb = img[..., :3].astype(np.uint32)
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        gray = (9797 * r + 19234 * g + 3737 * b) >> 15
+        return np.where((r == g) & (r == b), r, gray).astype(np.uint8)
+    if data[:2] in (b"P5", b"P6"):
+        img = decode_pnm(data)
+        if img.shape[-1] == 1:
+            return np.ascontiguousarray(img[..., 0])
+        # cvtColor's RGB -> gray: 14-bit fixed point, rounded.
+        rgb = img.astype(np.uint32)
+        return ((4899 * rgb[..., 0] + 9617 * rgb[..., 1] + 1868 * rgb[..., 2] + 8192)
+                >> 14).astype(np.uint8)
+    if data[:2] == b"\xff\xd8":
+        raise NotImplementedError(
+            f"{path}: JPEG decoding is not ported yet (PNG and PPM/PGM only)"
+        )
+    raise NotImplementedError(f"{path}: unsupported image format")
 
 
 def decode_png(data: bytes) -> np.ndarray:
