@@ -166,5 +166,21 @@ def test_f32_patch_embed_convolves_without_tf32(monkeypatch, global_tf32):
 
 
 def test_vitg14_raises():
-    with pytest.raises(NotImplementedError):
-        tdino.make_backbone("vitg14")
+    """vitg14 builds now (it raised before SwiGLU was ported), with the JAX
+    package's shapes: SwiGLU hidden 2736 (w12 1536 -> 5472, w3 2736 ->
+    1536), not the public ViT-g/14's 4096, and the same parameter count
+    (0.886 B)."""
+    shapes = jax.eval_shape(jdino.DinoV2(jdino.ViTConfig.named("vitg14")).init,
+                            jax.random.key(0), jnp.zeros((1, 56, 56, 3)))["params"]
+    jax_count = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
+    with torch.device("meta"):
+        model, cfg = tdino.make_backbone("vitg14")
+    sd = model.state_dict()
+    assert tdino.swiglu_hidden(cfg) == 2736
+    for i in range(cfg.depth):
+        mlp = shapes[f"blocks_{i}"]["mlp"]
+        assert sd[f"blocks.{i}.mlp.w12.weight"].shape == mlp["w12"]["kernel"].shape[::-1]
+        assert sd[f"blocks.{i}.mlp.w3.weight"].shape == mlp["w3"]["kernel"].shape[::-1]
+    assert sd["blocks.0.mlp.w12.weight"].shape == (5472, 1536)
+    assert sum(t.numel() for t in sd.values()) == jax_count
+    assert 0.88e9 < jax_count < 0.89e9

@@ -603,3 +603,100 @@ def test_unpack_on_cuda_matches_cpu(cuda_device, fmt):
     for full_range in (False, True):
         card = unpack(wire.to(cuda_device), full_range=full_range).cpu()
         assert (card - unpack(wire, full_range=full_range)).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [5, 300])
+def test_quantdense_on_cuda_matches_cpu(cuda_device, rows):
+    """QuantDense's int32 products on the card (torch._int_mm; 5 rows take
+    the padding to 17) equal the CPU's bit for bit; its output within
+    rtol 1e-6."""
+    from vit_colmap_tpu_torch.models.dinov2 import QuantDense
+
+    g = torch.Generator().manual_seed(rows)
+    layer = QuantDense(256, 72)
+    with torch.no_grad():
+        layer.weight.normal_(generator=g)
+        layer.bias.normal_(generator=g)
+        x = torch.randn(rows, 256, generator=g).to(torch.bfloat16)
+        acc, _, _ = layer.accumulate(x)
+        out = layer.quantized(x, torch.float32)
+        card = layer.to(cuda_device)
+        acc_card, _, _ = card.accumulate(x.to(cuda_device))
+        out_card = card.quantized(x.to(cuda_device), torch.float32)
+    assert torch.equal(acc_card.cpu(), acc)
+    torch.testing.assert_close(out_card.cpu(), out, rtol=1e-6, atol=1e-6 * out.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [dict(swiglu=True, mlp_ratio=8 / 3),
+                                     dict(num_register_tokens=4), dict(quantize="int8")],
+                         ids=["swiglu", "registers", "int8"])
+def test_backbone_variants_on_cuda_match_cpu(cuda_device, variant):
+    """A 2-layer backbone of each new variant at 1,120 patch tokens (kernel 1
+    on the card, its plain version on the CPU), bf16: the patch tokens'
+    per-token cosine at least 0.99 (int8 rounding amplifies one-ulp
+    differences), the RMS of their difference within 3% of theirs for the
+    float variants."""
+    from vit_colmap_tpu_torch.models import dinov2
+
+    cfg = dinov2.ViTConfig(embed_dim=384, depth=2, num_heads=6,
+                           attn_impl="fixedmax_fused", **{"mlp_ratio": 4.0, **variant})
+    model = dinov2.DinoV2(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.ls1.gamma.fill_(0.1)
+            blk.ls2.gamma.fill_(0.1)
+    x = torch.randn(2, 392, 560, 3, generator=torch.Generator().manual_seed(1))
+    before = launches["attention_qkv"]
+    with torch.no_grad():
+        ref = model(x)["x_norm_patchtokens"].float()
+        out = model.to(cuda_device)(x.to(cuda_device))["x_norm_patchtokens"].float().cpu()
+    torch.cuda.synchronize()
+    assert launches["attention_qkv"] == before + 2
+    cos = torch.nn.functional.cosine_similarity(out, ref, dim=-1)
+    assert cos.min().item() >= 0.99
+    if cfg.quantize == "none":
+        assert ((out - ref).square().mean() / ref.square().mean()).sqrt().item() <= 0.03
+
+
+@pytest.mark.gpu
+def test_trainable_extractor_on_cuda_matches_cpu(cuda_device):
+    """TrainableViTExtractor (vits14, random heads with spread logits) in
+    f32 on the card against the CPU: the heads within 1e-3 of their largest
+    value, and 99% of the CPU's keypoints with a card keypoint within 0.01
+    px."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.features.trainable_vit_extractor import (
+        TrainableViTExtractor,
+    )
+    from vit_colmap_tpu_torch.models.dinov2 import preprocess
+
+    kw = dict(backbone="vits14", num_keypoints=512, dtype=torch.float32, seed=3)
+    cpu = TrainableViTExtractor(device="cpu", **kw)
+    with torch.no_grad():
+        cpu.model.heads.kp2.weight[0] *= 20.0
+    card = TrainableViTExtractor(device=cuda_device, **kw)
+    card.model.load_state_dict(cpu.model.state_dict())
+    img = np.random.default_rng(0).integers(0, 256, (1, 224, 308, 3), dtype=np.uint8)
+    with torch.no_grad():
+        ref = cpu.model(preprocess(torch.from_numpy(img)))
+        out = card.model(preprocess(torch.from_numpy(img).to(cuda_device)))
+    for k in ref:
+        err = (out[k].cpu() - ref[k]).abs().max() / ref[k].abs().max()
+        assert err.item() <= 1e-3, k
+    x, y, _, _, valid, _ = (t.cpu() for t in card.select(out))
+    rx, ry, _, _, rvalid, _ = cpu.select(ref)
+    ours = torch.stack([x[0], y[0]], -1)[valid[0]].double()
+    theirs = torch.stack([rx[0], ry[0]], -1)[rvalid[0]].double()
+    share = (torch.cdist(theirs, ours).min(dim=1).values <= 0.01).double().mean().item()
+    assert len(theirs) > 100 and share >= 0.99
+
+
+@pytest.mark.gpu
+def test_relay_epoch_probe_on_cuda(cuda_device):
+    from vit_colmap_tpu_torch.utils.profiling import relay_epoch_probe
+
+    ms = relay_epoch_probe()
+    assert 0.0 < ms < 1000.0

@@ -8,9 +8,18 @@ COLMAP database.
 
 from __future__ import annotations
 
+import logging
 from abc import ABC, abstractmethod
 from pathlib import Path
 from typing import Optional
+
+import numpy as np
+
+from vit_colmap_tpu_torch.models.dinov2 import patch_grid_size
+from vit_colmap_tpu_torch.utils.config import CameraConfig
+from vit_colmap_tpu_torch.utils.image_io import imread_rgb, resize_area
+
+logger = logging.getLogger(__name__)
 
 IMAGE_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".tiff", ".tif"}
 
@@ -21,6 +30,20 @@ def list_images(image_dir: Path) -> list[Path]:
     return sorted(
         f for f in image_dir.iterdir() if f.suffix.lower() in IMAGE_EXTENSIONS
     )
+
+
+def read_rgb_groups(files: list[Path]) -> dict[tuple[int, int], list[tuple[Path, np.ndarray]]]:
+    """The readable images of ``files`` as RGB, grouped by (height, width)
+    in file order; unreadable files are skipped with a warning."""
+    groups: dict[tuple[int, int], list[tuple[Path, np.ndarray]]] = {}
+    for f in files:
+        try:
+            rgb = imread_rgb(f)
+        except ValueError:
+            logger.warning("Unreadable image skipped: %s", f)
+            continue
+        groups.setdefault(rgb.shape[:2], []).append((f, rgb))
+    return groups
 
 
 class BaseExtractor(ABC):
@@ -35,3 +58,30 @@ class BaseExtractor(ABC):
         """Process images in ``image_dir`` and write features into the COLMAP
         database at ``db_path``."""
         raise NotImplementedError
+
+    # The ViT extractors' host loop: subclasses that use it have
+    # ``image_batch``, ``extract_batch_async`` and ``_batch_rows``.
+    def _extract_groups(self, db, groups, camera_model: str,
+                        camera_params: Optional[list[float]]) -> None:
+        """Each group of :func:`read_rgb_groups` under one camera, its images
+        area-resized to the patch grid in batches of ``image_batch``.  Every
+        batch is launched first; the database writes of batch k then overlap
+        the device work of later batches.  ``_batch_rows(outs, names,
+        grid_wh, image_wh)`` turns a batch's outputs into each image's
+        (keypoints, descriptors) rows."""
+        for (oh, ow), items in groups.items():
+            th, tw = patch_grid_size(oh, ow)
+            params = camera_params or CameraConfig(model=camera_model).get_default_params(ow, oh)
+            cam_id = db.add_camera(camera_model, ow, oh, params,
+                                   prior_focal_length=camera_params is not None)
+            pending = []
+            for start in range(0, len(items), self.image_batch):
+                chunk = items[start : start + self.image_batch]
+                batch = np.stack([resize_area(rgb, tw, th) for _, rgb in chunk])
+                pending.append(([f.name for f, _ in chunk], self.extract_batch_async(batch)))
+            for names, outs in pending:
+                rows = self._batch_rows(outs, names, (tw, th), (ow, oh))
+                for name, (kpts, desc) in zip(names, rows):
+                    image_id = db.add_image(name, camera_id=cam_id)
+                    db.add_keypoints(image_id, kpts)
+                    db.add_descriptors(image_id, desc)

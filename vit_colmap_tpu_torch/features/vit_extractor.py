@@ -13,9 +13,12 @@ that wire format (``ops/transfer.py``: packed on the host, cv2's studio
 range, and unpacked to RGB on the card before the backbone), as the
 reference's cv2 path does.
 
-Not ported yet (raise): ``quantize="int8"``, orbax checkpoint directories
-as ``weights_path``, and the reference's native JPEG decoder (full-range
-I420 straight from libjpeg).
+``quantize="int8"`` runs the backbone's transformer matmuls through
+``QuantDense`` (int8 weights and activations, int32 products).
+
+Not ported yet (raise): orbax checkpoint directories as ``weights_path``,
+and the reference's native JPEG decoder (full-range I420 straight from
+libjpeg).
 """
 
 from __future__ import annotations
@@ -29,11 +32,14 @@ import torch
 
 from vit_colmap_tpu_torch.database import ColmapDatabase
 from vit_colmap_tpu_torch.device import resolve_device
-from vit_colmap_tpu_torch.features.base_extractor import BaseExtractor, list_images
+from vit_colmap_tpu_torch.features.base_extractor import (
+    BaseExtractor,
+    list_images,
+    read_rgb_groups,
+)
 from vit_colmap_tpu_torch.models.dinov2 import (
     PATCH_SIZE,
     make_backbone,
-    patch_grid_size,
     preprocess,
 )
 from vit_colmap_tpu_torch.ops.detect import detect_keypoints, quadratic_refine
@@ -52,8 +58,6 @@ from vit_colmap_tpu_torch.ops.transfer import (
     unpack_yuv420,
     unpack_yuv420_c4,
 )
-from vit_colmap_tpu_torch.utils.config import CameraConfig
-from vit_colmap_tpu_torch.utils.image_io import imread_rgb, resize_area
 
 logger = logging.getLogger(__name__)
 
@@ -91,8 +95,6 @@ class ViTExtractor(BaseExtractor):
     ):
         if transfer_format not in ("rgb", "yuv420", "yuv420c4"):
             raise ValueError(f"unknown transfer_format {transfer_format!r}")
-        if quantize != "none":
-            raise NotImplementedError("quantize='int8' is not ported yet; see ROADMAP.md")
         self.device = resolve_device(device)
         self.backbone_name = backbone
         self.max_keypoints = max_keypoints
@@ -111,7 +113,8 @@ class ViTExtractor(BaseExtractor):
 
         generator = torch.Generator().manual_seed(seed)
         self.model, self.cfg = make_backbone(
-            backbone, dtype=dtype, attn_impl=attn_impl, generator=generator
+            backbone, dtype=dtype, attn_impl=attn_impl, quantize=quantize,
+            generator=generator,
         )
         if weights_path and Path(weights_path).is_dir():
             raise NotImplementedError(
@@ -260,54 +263,32 @@ class ViTExtractor(BaseExtractor):
             logger.error("No images found in %s", image_dir)
             return
 
-        rgbs: dict[Path, np.ndarray] = {}
-        groups: dict[tuple[int, int], list[Path]] = {}
-        for f in files:
-            try:
-                rgb = imread_rgb(f)
-            except ValueError:
-                logger.warning("Unreadable image skipped: %s", f)
-                continue
-            rgbs[f] = rgb
-            groups.setdefault(rgb.shape[:2], []).append(f)
+        groups = read_rgb_groups(files)
         # PCA from the first images in sorted-name order, not arrival order.
+        rgbs = {f: rgb for items in groups.values() for f, rgb in items}
         if rgbs:
             self._ensure_pca([rgbs[f] for f in files if f in rgbs])
 
         db = ColmapDatabase(db_path)
         try:
-            self._extract_groups(db, groups, rgbs, camera_model, camera_params)
+            self._extract_groups(db, groups, camera_model, camera_params)
             db.commit()
         finally:
             db.close()
 
-    def _extract_groups(self, db, groups, rgbs, camera_model, camera_params):
-        for (oh, ow), gfiles in groups.items():
-            th, tw = patch_grid_size(oh, ow)
-            params = camera_params or CameraConfig(
-                model=camera_model
-            ).get_default_params(ow, oh)
-            cam_id = db.add_camera(
-                camera_model, ow, oh, params,
-                prior_focal_length=camera_params is not None,
-            )
-            # Launch every batch first; the database writes of batch k then
-            # overlap the device work of later batches.
-            pending = []
-            for start in range(0, len(gfiles), self.image_batch):
-                chunk = gfiles[start : start + self.image_batch]
-                batch = np.stack([resize_area(rgbs[f], tw, th) for f in chunk])
-                pending.append((chunk, self.extract_batch_async(batch)))
-            for chunk, (xy, _sc, valid, desc) in pending:
-                desc_dev = compact_valid_rows(desc, valid)
-                xy_np = xy.cpu().numpy()
-                valid_np = valid.cpu().numpy()
-                desc_np = desc_dev.cpu().numpy()
-                for b, f in enumerate(chunk):
-                    v = valid_np[b]
-                    cnt = int(v.sum())
-                    kpts = self._map_coords(xy_np[b][v], (tw, th), (ow, oh))
-                    image_id = db.add_image(f.name, camera_id=cam_id)
-                    db.add_keypoints(image_id, kpts)
-                    db.add_descriptors(image_id, desc_np[b][:cnt])
-                    self.device_cache[f.name] = (desc_dev[b], cnt)
+    def _batch_rows(self, outs, names, grid_wh, image_wh):
+        """A batch's outputs -> each image's valid keypoints in image pixels
+        and its uint8 descriptors; the row-compacted device descriptors go
+        into ``device_cache``."""
+        xy, _sc, valid, desc = outs
+        desc_dev = compact_valid_rows(desc, valid)
+        xy_np = xy.cpu().numpy()
+        valid_np = valid.cpu().numpy()
+        desc_np = desc_dev.cpu().numpy()
+        rows = []
+        for b, name in enumerate(names):
+            v = valid_np[b]
+            cnt = int(v.sum())
+            rows.append((self._map_coords(xy_np[b][v], grid_wh, image_wh), desc_np[b][:cnt]))
+            self.device_cache[name] = (desc_dev[b], cnt)
+        return rows

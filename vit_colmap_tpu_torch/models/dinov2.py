@@ -1,12 +1,14 @@
 """DINOv2 Vision Transformer backbone in PyTorch.
 
 Counterpart of ``vit_colmap_tpu/models/dinov2.py``: patch-14 conv
-embedding, cls token, pre-norm blocks with LayerScale, GELU MLP and a final
-LayerNorm in f32.  Parameters live in f32 and the blocks compute in
-``cfg.dtype`` (bf16 by default), as the flax model does.  The state-dict
-keys are those of the public DINOv2 checkpoints (``patch_embed.proj``,
-``cls_token``, ``pos_embed``, ``blocks.{i}.{norm1,attn.qkv,attn.proj,ls1,
-norm2,mlp.fc1,mlp.fc2,ls2}``, ``norm``).
+embedding, cls (+ optional register) tokens, pre-norm blocks with
+LayerScale, GELU MLP (SwiGLU for vitg14) and a final LayerNorm in f32.
+Parameters live in f32 and the blocks compute in ``cfg.dtype`` (bf16 by
+default), as the flax model does; ``quantize="int8"`` runs the transformer
+matmuls through :class:`QuantDense`.  The state-dict keys are those of the
+public DINOv2 checkpoints (``patch_embed.proj``, ``cls_token``,
+``pos_embed``, ``register_tokens``, ``blocks.{i}.{norm1,attn.qkv,attn.proj,
+ls1,norm2,mlp.fc1,mlp.fc2 | mlp.w12,mlp.w3,ls2}``, ``norm``).
 
 Input is (B, H, W, 3) normalized images, H and W multiples of 14, the JAX
 package's layout.
@@ -73,19 +75,57 @@ ATTN_IMPLS = ("auto", "xla", "flash", "fixedmax", "fixedmax_fused")
 
 
 def _check_supported(c: ViTConfig) -> None:
-    if c.swiglu:
-        raise NotImplementedError("SwiGLU (vitg14) is not ported yet; see ROADMAP.md")
-    if c.num_register_tokens:
-        raise NotImplementedError("register tokens are not ported yet; see ROADMAP.md")
-    if c.quantize != "none":
-        raise NotImplementedError("quantize='int8' is not ported yet; see ROADMAP.md")
+    if c.quantize not in ("none", "int8"):
+        raise ValueError(f"unknown quantize {c.quantize!r}; options: none, int8")
     if c.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {c.attn_impl!r}; options: {ATTN_IMPLS}")
     if c.gelu not in ("tanh", "erf"):
         raise ValueError(f"unknown gelu {c.gelu!r}")
 
 
+class QuantDense(nn.Linear):
+    """int8 dense layer: per-output-channel int8 weights, a dynamic
+    per-tensor int8 activation scale, an int32 product
+    (``torch._int_mm``) and f32 dequantization, as the reference's
+    ``QuantDense``.  Its parameters are ``nn.Linear``'s, so every
+    checkpoint path is untouched; the weights are quantized at each call.
+    Inference only (rounding has no gradient).  On the card ``_int_mm``
+    takes k and n multiples of 8."""
+
+    def weight_int8(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(out, in) int8 weights and their (out,) f32 scales max|W|/127,
+        rounded half to even."""
+        w = self.weight.float()
+        s_w = torch.clamp_min(w.abs().amax(dim=1), 1e-12) / 127.0
+        return torch.round(w / s_w[:, None]).to(torch.int8), s_w
+
+    def accumulate(self, x: torch.Tensor):
+        """(..., in) -> the int32 products (M, out) of the int8 activations
+        and weights, the activation scale (over the whole of ``x``, so it
+        depends on the batch) and the weight scales."""
+        w8, s_w = self.weight_int8()
+        xf = x.float().reshape(-1, x.shape[-1])
+        s_x = torch.clamp_min(xf.abs().amax(), 1e-12) / 127.0
+        x8 = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+        m = x8.shape[0]
+        if m <= 16:  # the card's int8 product takes more than 16 rows
+            x8 = F.pad(x8, (0, 0, 0, 17 - m))
+        return torch._int_mm(x8, w8.t())[:m], s_x, s_w
+
+    def quantized(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        acc, s_x, s_w = self.accumulate(x)
+        y = acc.float() * (s_x * s_w) + self.bias.float()
+        return y.reshape(*x.shape[:-1], self.out_features).to(dtype)
+
+
+def _dense(c: ViTConfig, in_features: int, out_features: int) -> nn.Linear:
+    """nn.Linear, or QuantDense for ``quantize="int8"``."""
+    return (QuantDense if c.quantize == "int8" else nn.Linear)(in_features, out_features)
+
+
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(layer, QuantDense):
+        return layer.quantized(x, dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
@@ -124,8 +164,8 @@ class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.cfg = cfg
-        self.qkv = nn.Linear(cfg.embed_dim, 3 * cfg.embed_dim)
-        self.proj = nn.Linear(cfg.embed_dim, cfg.embed_dim)
+        self.qkv = _dense(cfg, cfg.embed_dim, 3 * cfg.embed_dim)
+        self.proj = _dense(cfg, cfg.embed_dim, cfg.embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -158,16 +198,35 @@ class Attention(nn.Module):
         return _linear(out.transpose(1, 2).reshape(B, N, D), self.proj, c.dtype)
 
 
+def swiglu_hidden(cfg: ViTConfig) -> int:
+    """The SwiGLU hidden width, by the JAX package's rule: 2/3 of
+    int(embed_dim * mlp_ratio), rounded up to a multiple of 8 (2736 for
+    vitg14; the public DINOv2 ViT-g/14 uses 4096)."""
+    return (int(int(cfg.embed_dim * cfg.mlp_ratio) * 2 / 3) + 7) // 8 * 8
+
+
 class Mlp(nn.Module):
+    """GELU MLP (fc1, fc2), or for ``swiglu`` the fused SwiGLU (w12, w3):
+    silu of w12's first half times its second half."""
+
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.cfg = cfg
-        hidden = int(cfg.embed_dim * cfg.mlp_ratio)
-        self.fc1 = nn.Linear(cfg.embed_dim, hidden)
-        self.fc2 = nn.Linear(hidden, cfg.embed_dim)
+        d = cfg.embed_dim
+        if cfg.swiglu:
+            hidden = swiglu_hidden(cfg)
+            self.w12 = _dense(cfg, d, 2 * hidden)
+            self.w3 = _dense(cfg, hidden, d)
+        else:
+            hidden = int(d * cfg.mlp_ratio)
+            self.fc1 = _dense(cfg, d, hidden)
+            self.fc2 = _dense(cfg, hidden, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
+        if c.swiglu:
+            x1, x2 = _linear(x, self.w12, c.dtype).chunk(2, dim=-1)
+            return _linear(F.silu(x1) * x2, self.w3, c.dtype)
         h = _linear(x, self.fc1, c.dtype)
         h = F.gelu(h, approximate="none" if c.gelu == "erf" else "tanh")
         return _linear(h, self.fc2, c.dtype)
@@ -246,6 +305,8 @@ class DinoV2(nn.Module):
         self.patch_embed.proj = nn.Conv2d(3, d, cfg.patch_size, cfg.patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pretrain_grid**2, d))
+        if cfg.num_register_tokens:
+            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, d))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(d, eps=cfg.ln_eps)
         self.reset_parameters(generator)
@@ -253,9 +314,10 @@ class DinoV2(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Random init with the flax model's distributions (lecun-normal
-        Dense/Conv kernels, zero biases, pos_embed N(0, 0.02), zero cls,
-        LayerScale at ``layerscale_init``).  Not the same numbers as flax:
-        parity tests carry parameters across with ``convert``."""
+        Dense/Conv kernels, zero biases, pos_embed N(0, 0.02), zero cls and
+        register tokens, LayerScale at ``layerscale_init``).  Not the same
+        numbers as flax: parity tests carry parameters across with
+        ``convert``."""
         def lecun(w: torch.Tensor, fan_in: int) -> None:
             w.normal_(0.0, fan_in**-0.5, generator=generator)
 
@@ -264,6 +326,8 @@ class DinoV2(nn.Module):
         self.patch_embed.proj.bias.zero_()
         self.pos_embed.normal_(0.0, 0.02, generator=generator)
         self.cls_token.zero_()
+        if self.cfg.num_register_tokens:
+            self.register_tokens.zero_()
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 lecun(m.weight, m.in_features)
@@ -288,13 +352,16 @@ class DinoV2(nn.Module):
         pos = interpolate_pos_embed(self.pos_embed, gh, gw, c.pretrain_grid)
         cls = self.cls_token.to(c.dtype).expand(B, -1, -1)
         t = torch.cat([cls, t], dim=1) + pos.to(c.dtype)
+        if c.num_register_tokens:  # between cls and the patches, after the pos-embed
+            reg = self.register_tokens.to(c.dtype).expand(B, -1, -1)
+            t = torch.cat([t[:, :1], reg, t[:, 1:]], dim=1)
         for blk in self.blocks:
             t = blk(t)
         t = F.layer_norm(t.float(), self.norm.normalized_shape, self.norm.weight,
                          self.norm.bias, self.norm.eps)
         return {
             "x_norm_clstoken": t[:, 0],
-            "x_norm_patchtokens": t[:, 1:],
+            "x_norm_patchtokens": t[:, 1 + c.num_register_tokens:],
             "grid": (gh, gw),
         }
 
@@ -318,10 +385,12 @@ def patch_grid_size(h: int, w: int, patch: int = PATCH_SIZE) -> tuple[int, int]:
 def make_backbone(
     name: str = "vitb14",
     dtype: torch.dtype = torch.bfloat16,
+    num_register_tokens: int = 0,
     attn_impl: str = "auto",
     quantize: str = "none",
     generator: Optional[torch.Generator] = None,
 ) -> tuple[DinoV2, ViTConfig]:
-    cfg = ViTConfig.named(name, dtype=dtype, attn_impl=attn_impl, quantize=quantize)
+    cfg = ViTConfig.named(name, dtype=dtype, num_register_tokens=num_register_tokens,
+                          attn_impl=attn_impl, quantize=quantize)
     return DinoV2(cfg, generator=generator), cfg
 

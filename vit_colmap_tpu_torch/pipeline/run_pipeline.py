@@ -3,17 +3,21 @@
 Counterpart of ``vit_colmap_tpu/pipeline/run_pipeline.py``:
 ``Pipeline(config).run(image_dir, output_dir, db_path, dataset, scene,
 results_dir)`` extracts features into a COLMAP database, matches and
-verifies every pair, and exports the metrics, with the same flags and the
-same per-stage report.  Ported so far: the ``vit``, ``sift`` (and its
-alias ``colmap_sift``) and ``dummy`` extractors, matching, geometric verification and incremental
-reconstruction (stage 3, on by default, written to ``<output>/sparse/<idx>/``;
-``--skip-reconstruction`` turns it off).
+verifies every pair, reconstructs (stage 3, on by default, written to
+``<output>/sparse/<idx>/``; ``--skip-reconstruction`` turns it off) and
+exports the metrics, with the same flags and the same per-stage report.
+The stages report into ``utils/profiling.GLOBAL_TIMER``, whose table is
+logged after each run; ``--profile-dir`` (``VIT_COLMAP_PROFILE_DIR``)
+writes a ``torch.profiler`` trace of the run.  Extractors: ``vit``,
+``trainable_vit``, ``sift`` (and its alias ``colmap_sift``) and ``dummy``;
+``hybrid`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Optional
@@ -23,8 +27,14 @@ from vit_colmap_tpu_torch.device import resolve_device
 from vit_colmap_tpu_torch.utils.config import Config
 from vit_colmap_tpu_torch.utils.export import export_metrics
 from vit_colmap_tpu_torch.utils.metrics import MetricsExtractor, MetricsResult
+from vit_colmap_tpu_torch.utils.profiling import GLOBAL_TIMER, trace
 
 logger = logging.getLogger(__name__)
+
+PORTED_EXTRACTORS = ("vit", "trainable_vit", "sift", "colmap_sift", "dummy")
+# Extractors whose descriptors are stored with the signed uint8 encoding.
+SIGNED_DESCRIPTORS = ("vit", "trainable_vit", "hybrid")
+
 
 class Pipeline:
     def __init__(self, config: Optional[Config] = None, device=None):
@@ -35,10 +45,10 @@ class Pipeline:
 
     def _check_ported(self) -> None:
         c = self.config
-        if c.extractor.extractor_type not in ("vit", "sift", "colmap_sift", "dummy"):
+        if c.extractor.extractor_type not in PORTED_EXTRACTORS:
             raise NotImplementedError(
                 f"extractor {c.extractor.extractor_type!r} is not ported yet "
-                "(only 'vit', 'sift', 'colmap_sift' and 'dummy'); see ROADMAP.md"
+                f"(only {', '.join(map(repr, PORTED_EXTRACTORS))}); see ROADMAP.md"
             )
 
     def _make_extractor(self):
@@ -55,6 +65,23 @@ class Pipeline:
 
             self._extractors[key] = SiftExtractor(max_keypoints=ecfg.max_keypoints,
                                                   device=self.device)
+        elif ecfg.extractor_type == "trainable_vit":
+            from vit_colmap_tpu_torch.features.trainable_vit_extractor import (
+                TrainableViTExtractor,
+            )
+
+            # The reference's SfM defaults (20480 keypoints, NMS 1, threshold
+            # 0.4), cut to the score-ranked budget sfm_max_keypoints.
+            budget = ecfg.sfm_max_keypoints
+            self._extractors[key] = TrainableViTExtractor(
+                weights_path=ecfg.vit_weights_path,
+                backbone=ecfg.backbone,
+                num_keypoints=min(20480, budget) if budget else 20480,
+                nms_radius=1,
+                detection_threshold=0.4,
+                image_batch=ecfg.image_batch,
+                device=self.device,
+            )
         else:
             from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
 
@@ -85,12 +112,20 @@ class Pipeline:
         db_path.parent.mkdir(parents=True, exist_ok=True)
         logger.info("Device: %s", self.device)
         logger.info("\n%s", self.config.summary())
+        with trace():  # a torch.profiler trace when VIT_COLMAP_PROFILE_DIR is set
+            report = self._run_stages(image_dir, output_dir, db_path, dataset, scene,
+                                      results_dir, GLOBAL_TIMER)
+        logger.info("\n%s", GLOBAL_TIMER.summary())
+        return report
 
+    def _run_stages(self, image_dir, output_dir, db_path, dataset, scene, results_dir,
+                    timer) -> Optional[dict]:
         t0 = time.perf_counter()
-        extractor = self._make_extractor()
-        extractor.extract(
-            image_dir, db_path, self.config.camera.model, self.config.camera.params
-        )
+        with timer.stage("extract"):
+            extractor = self._make_extractor()
+            extractor.extract(
+                image_dir, db_path, self.config.camera.model, self.config.camera.params
+            )
         t_extract = time.perf_counter() - t0
         with ColmapDatabase.open_database(db_path) as db:
             num_images = db.num_images
@@ -107,16 +142,16 @@ class Pipeline:
         if self.config.do_matching:
             from vit_colmap_tpu_torch.pipeline.match import match_exhaustive
 
-            if self.config.extractor.extractor_type == "vit":
-                # ViT descriptors are stored with the signed uint8 encoding.
+            if self.config.extractor.extractor_type in SIGNED_DESCRIPTORS:
                 self.config.matching.descriptor_encoding = "signed"
             t1 = time.perf_counter()
-            stats = match_exhaustive(
-                db_path,
-                self.config.matching,
-                device_descriptors=getattr(extractor, "device_cache", None),
-                device=self.device,
-            )
+            with timer.stage("match+verify"):
+                stats = match_exhaustive(
+                    db_path,
+                    self.config.matching,
+                    device_descriptors=getattr(extractor, "device_cache", None),
+                    device=self.device,
+                )
             t_match = time.perf_counter() - t1
 
         t_recon = 0.0
@@ -125,9 +160,10 @@ class Pipeline:
             from vit_colmap_tpu_torch.sfm.incremental import incremental_mapping
 
             t2 = time.perf_counter()
-            self.reconstructions = incremental_mapping(
-                db_path, image_dir, output_dir / "sparse", self.config.reconstruction,
-                device=self.device)
+            with timer.stage("reconstruction"):
+                self.reconstructions = incremental_mapping(
+                    db_path, image_dir, output_dir / "sparse", self.config.reconstruction,
+                    device=self.device)
             t_recon = time.perf_counter() - t2
 
         self._print_summary(db_path, t_extract, t_match, t_recon)
@@ -251,13 +287,13 @@ def main(argv: Optional[list[str]] = None) -> None:
     ap.add_argument("--scene", type=str, default=None)
     ap.add_argument("--export-metrics", type=Path, default=None)
     ap.add_argument("--profile-dir", type=Path, default=None,
-                    help="profiler trace directory (not ported yet)")
+                    help="write a torch.profiler trace (Chrome JSON) to this directory")
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
     if args.profile_dir:
-        raise NotImplementedError("--profile-dir is not ported yet")
+        os.environ["VIT_COLMAP_PROFILE_DIR"] = str(args.profile_dir)
     config = Config.from_args(args)
     Pipeline(config=config, device=args.device).run(
         image_dir=args.images,
