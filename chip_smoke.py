@@ -104,11 +104,27 @@ Phases, one flushed line each with elapsed seconds:
    and pipe rates), the bare fp32 ``torch.bmm`` beside kernels 2 and 4 with
    the SM clock and power that nvidia-smi reads while kernel 2 runs back to
    back, and the pipeline's extraction / matching / verification /
-   reconstruction times on a second, warm run.
+   reconstruction times on a second, warm run;
+7. train: the training stack (``vit_colmap_tpu_torch.training.train.main``)
+   on an HPatches-layout tree written by ``generate_synthetic_hpatches`` at
+   1200 x 1600 (2 illumination and 4 viewpoint sequences; the dataset
+   gives 1190 x 1596), from the slice's random ViT-B/14 ``.pth``, at the
+   reference's defaults (batch 4, top-k 512, 8 / 4 / 4 negatives,
+   all_pairs, synthetic ratio 0.5, photometric 0.5): a few steps of one
+   epoch and a validation pass, the same resumed from ``latest`` (the
+   step count must continue), and a few steps of ``--train-backbone``
+   (PyTorch's fused attention and its backward), each run held to its
+   step count; per run the median step time of the warm steps, the peak
+   memory above what was allocated before it and the loss components of
+   the first and last steps; one fixed batch in f32 on the card against
+   the CPU (loss components and heads gradients); then the fine-tuned
+   ``best_model`` through ``Pipeline.run(extractor_type="trainable_vit")``
+   on the slice's 8 images (kernel 1 in every backbone layer, kernel 2
+   once), its matches and tokens against the plain versions.
 
 Every path (the main one, each of 5a-5d, calibrated verification, the
 mapper, SIFT, the 50-view scene, the wire, the trainable path, vitg14,
-registers and int8) is driven with the kernels'
+registers, int8 and the train path's Pipeline.run) is driven with the kernels'
 launch counts set to 0 just before it and read just after; each kernel
 must have launched on its path, and the kernels it replaces must not have
 (verification, the mapper and SIFT launch none of the five).
@@ -349,6 +365,37 @@ INT8_ROWS = 2048
 INT8_CPU_HW = (434, 588)
 INT8_CPU_COS = (0.999, 0.99)
 INT8_COS = (0.999, 0.99)
+
+# The train phase: an HPatches-layout tree (TRAIN_SEQUENCES illumination and
+# viewpoint sequences of TRAIN_IMAGES images at TRAIN_SIZE, which the
+# dataset resizes to 1190 x 1596: 85 x 114 tokens), the trainer at the
+# reference's defaults (vitb14, descriptor 128, batch 4, top-k 512, 8 / 4 / 4
+# negatives, all_pairs, synthetic ratio 0.5, photometric 0.5) for
+# TRAIN_STEPS steps and a validation pass, then the same resumed for
+# TRAIN_STEPS more, then TRAIN_BB_STEPS of --train-backbone (batch
+# TRAIN_BB_BATCH).  Validation takes TRAIN_VAL_FRACTION of the 27 samples
+# (5: one batch of 4).  One fixed batch (two pairs of the tree at
+# TRAIN_CHECK_HW, top-k TRAIN_CHECK_TOPK, the same uniforms) in f32 on the
+# card against the CPU: each loss component within TRAIN_LOSS_TOL
+# relative, each heads gradient within TRAIN_GRAD_TOL of its tensor's
+# largest (f32 sums in another order, and the card's H^-1 moving points by
+# up to 3e-5 px; a probe with fresh heads read 1.9e-7 and 7.5e-4); a
+# known-wrong step whose homographies are not inverted for the transfer
+# must miss the loss bound.
+
+TRAIN_BACKBONE = "vitb14"
+TRAIN_SEQUENCES = (2, 4)
+TRAIN_IMAGES = 3
+TRAIN_SIZE = (1200, 1600)
+TRAIN_BATCH = 4
+TRAIN_STEPS = 3
+TRAIN_BB_STEPS = 3
+TRAIN_BB_BATCH = 4
+TRAIN_VAL_FRACTION = 0.2
+TRAIN_CHECK_HW = (224, 294)
+TRAIN_CHECK_TOPK = 128
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 3e-3
 
 
 def log(msg: str) -> None:
@@ -3231,6 +3278,213 @@ def profile_phase(work: Path, weights: Path) -> dict:
     return {"trace_mb": traces[0].stat().st_size / 1e6, **busy}
 
 
+def train_scalars(out: Path) -> list:
+    return [json.loads(x) for x in (out / "scalars.jsonl").read_text().splitlines()]
+
+
+def train_run(out: Path, data: Path, weights: Path, args: list, n_steps: int) -> dict:
+    """One run of the port's training CLI on the tree, which must log
+    ``n_steps`` steps (the CLI logs a step that raised and goes on): its
+    train lines, the median step seconds of the warm steps (all but the
+    run's first), and the card's peak memory above what was allocated
+    before the run (earlier phases' tensors), with that baseline."""
+    import torch
+
+    from vit_colmap_tpu_torch.training import train
+
+    before = len(train_scalars(out)) if (out / "scalars.jsonl").exists() else 0
+    base = 0
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    train.main(["--data-dir", str(data), "--backbone", TRAIN_BACKBONE, "--backbone-weights",
+                str(weights), "--target-height", str(TRAIN_SIZE[0] // 14 * 14),
+                "--target-width", str(TRAIN_SIZE[1] // 14 * 14), "--val-fraction",
+                str(TRAIN_VAL_FRACTION), "--log-interval", "1", "--output-dir", str(out),
+                "--device", DEVICE, *args])
+    sync()
+    wall = time.perf_counter() - t
+    lines = train_scalars(out)[before:]
+    steps = [x for x in lines if x["event"] == "train"]
+    vals = [x for x in lines if x["event"] == "val"]
+    check(len(steps) == n_steps and all(math.isfinite(x["total_loss"]) for x in steps)
+          and len(vals) == 1 and math.isfinite(vals[0]["total_loss"]),
+          f"train: a run logged {len(steps)} of {n_steps} steps, its losses are not finite "
+          f"or validation did not run: {lines}")
+    cuda = DEVICE == "cuda"
+    return {"steps": steps, "val": vals[0]["total_loss"], "wall_s": wall,
+            "step_s_first": steps[0]["step_s"],
+            "step_s_warm_median": statistics.median(x["step_s"] for x in steps[1:]),
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9 if cuda else None,
+            "baseline_gb": base / 1e9 if cuda else None}
+
+
+LOSS_KEYS = ("total_loss", "detector_loss", "descriptor_loss", "score_loss", "orient_loss",
+             "positive_loss", "triplet_loss", "nce_loss", "variance_loss", "token_loss")
+
+
+def loss_line(step: dict) -> dict:
+    return {k: round(step[k], 5) for k in LOSS_KEYS if k in step}
+
+
+def train_card_cpu(data: Path, weights: Path, heads_dir: Path) -> dict:
+    """One fixed batch (two real pairs of the tree at TRAIN_CHECK_HW) through
+    one training step in f32 on the card and on the CPU, from the same
+    backbone, the trained heads and the same uniforms: the loss components
+    and the clipped heads gradients, card against CPU."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from vit_colmap_tpu_torch.dataloader.hpatches_dataset import HPatchesDataset, stack_items
+    from vit_colmap_tpu_torch.models.convert import load_torch_checkpoint
+    from vit_colmap_tpu_torch.models.dinov2 import make_backbone
+    from vit_colmap_tpu_torch.models.feature_model import FeatureHeads, FeatureModelConfig
+    from vit_colmap_tpu_torch.training import train_step
+    from vit_colmap_tpu_torch.training.checkpoint import load_checkpoint
+
+    ds = HPatchesDataset(data, pair_mode="all_pairs", target_height=TRAIN_CHECK_HW[0],
+                         target_width=TRAIN_CHECK_HW[1], seed=0)
+    batch = stack_items([ds[0], ds[len(ds) - 1]])  # an illumination and a viewpoint pair
+    backbone_sd = load_torch_checkpoint(str(weights))
+    heads_sd = load_checkpoint(heads_dir)["heads"]
+
+    def step_on(device, wrong: bool = False):
+        if wrong:  # H12 used where H12^-1 belongs
+            with mock.patch.object(torch.linalg, "inv", lambda H: H):
+                return step_on(device)
+        bb, _ = make_backbone(TRAIN_BACKBONE, dtype=torch.float32)
+        bb.load_state_dict(backbone_sd)
+        heads = FeatureHeads(FeatureModelConfig(backbone=TRAIN_BACKBONE, dtype=torch.float32),
+                             bb.cfg.embed_dim)
+        heads.load_state_dict(heads_sd)
+        bb.to(device).requires_grad_(False)
+        heads.to(device)
+        recipe = train_step.make_optimizer(total_steps=10, warmup_steps=2)
+        step, _ = train_step.make_train_step(bb, heads, recipe,
+                                             batch_kwargs=dict(top_k=TRAIN_CHECK_TOPK))
+        rng = np.random.default_rng(5)
+        _, metrics = step(train_step.init_train_state(heads, recipe),
+                          {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                          lambda shape: torch.from_numpy(rng.random(shape, dtype=np.float32)))
+        sync()
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: p.grad.float().cpu() for k, p in heads.named_parameters()})
+
+    def loss_err(m, ref):
+        return {k: abs(m[k] - v) / max(abs(v), 1e-6) for k, v in ref.items() if k in LOSS_KEYS}
+
+    m_card, g_card = step_on(DEVICE)
+    m_cpu, g_cpu = step_on("cpu")
+    grad_err = max((g_card[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-12)
+                   for k, g in g_cpu.items())
+    wrong = max(loss_err(step_on(DEVICE, wrong=True)[0], m_cpu).values())
+    log(f"train: known-wrong 'H not inverted for the transfer': loss relative error "
+        f"{wrong:.3g} (must exceed {TRAIN_LOSS_TOL})")
+    if not wrong > TRAIN_LOSS_TOL:
+        POWERLESS.append(f"train 'H not inverted': {wrong}")
+    return {"loss_rel_err": loss_err(m_card, m_cpu), "grad_rel_err": grad_err,
+            "loss_card": {k: m_card[k] for k in loss_err(m_card, m_cpu)}}
+
+
+def train_phase(work: Path, weights: Path) -> dict:
+    """The training stack on the card, closed into the trainable_vit
+    extractor: the HPatches-layout tree, a frozen-backbone run and its
+    resume (the step count continues), a --train-backbone run, one fixed
+    batch card against CPU, and the fine-tuned best_model through
+    Pipeline.run(extractor_type="trainable_vit") on the slice's images
+    (counts cleared: kernel 1 in every backbone layer, kernel 2 once), whose
+    matches and fine-tuned backbone's tokens are held against the plain
+    versions."""
+    import types
+
+    import torch
+
+    from vit_colmap_tpu_torch.database import ColmapDatabase
+    from vit_colmap_tpu_torch.dataloader.synthetic_benchmark import generate_synthetic_hpatches
+    from vit_colmap_tpu_torch.kernels import attention
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.models.dinov2 import preprocess
+    from vit_colmap_tpu_torch.pipeline import Pipeline
+
+    card = nvidia_smi("name,power.limit")
+    data = work / "hpatches"
+    t = time.perf_counter()
+    names = generate_synthetic_hpatches(data, n_illum=TRAIN_SEQUENCES[0],
+                                        n_view=TRAIN_SEQUENCES[1], n_img=TRAIN_IMAGES,
+                                        size=TRAIN_SIZE, seed=0)
+    log(f"train: wrote {len(names)} HPatches-layout sequences of {TRAIN_IMAGES} images at "
+        f"{TRAIN_SIZE[1]}x{TRAIN_SIZE[0]} in {time.perf_counter() - t:.1f} s")
+
+    frozen = work / "train_frozen"
+    base = ["--batch-size", str(TRAIN_BATCH), "--steps-per-epoch", str(TRAIN_STEPS)]
+    first = train_run(frozen, data, weights, base + ["--epochs", "1"], TRAIN_STEPS)
+    meta = json.loads((frozen / "meta.json").read_text())
+    check(meta == {"epoch": 1, "step": TRAIN_STEPS, "train_backbone": False}
+          and (frozen / "best_model" / "state.pt").exists(),
+          f"train: frozen run's meta {meta}")
+    resumed = train_run(frozen, data, weights,
+                        base + ["--epochs", "2", "--resume", str(frozen / "latest")],
+                        TRAIN_STEPS)
+    meta = json.loads((frozen / "meta.json").read_text())
+    check(meta["step"] == 2 * TRAIN_STEPS and resumed["steps"][0]["step"] == TRAIN_STEPS + 1,
+          f"train: --resume did not continue the step count: {meta}, "
+          f"first resumed step {resumed['steps'][0]['step']}")
+    tuned = work / "train_backbone"
+    bb = train_run(tuned, data, weights, ["--batch-size", str(TRAIN_BB_BATCH),
+                                          "--steps-per-epoch", str(TRAIN_BB_STEPS),
+                                          "--epochs", "1", "--train-backbone"],
+                   TRAIN_BB_STEPS)
+    meta = json.loads((tuned / "meta.json").read_text())
+    check(meta == {"epoch": 1, "step": TRAIN_BB_STEPS, "train_backbone": True},
+          f"train: --train-backbone run's meta {meta}")
+    check(all("token_loss" in x for x in bb["steps"]), "train: no token loss while fine-tuning")
+    for label, run in (("frozen", first), ("resumed", resumed), ("train-backbone", bb)):
+        log(f"train: {label} run on {card}: {len(run['steps'])} steps, first step "
+            f"{run['step_s_first']:.3f} s, warm steps median {run['step_s_warm_median']} s "
+            f"(host clock to the loss on the host), run {run['wall_s']:.1f} s with data and "
+            f"checkpoints, peak memory {run['peak_gb']} GB above the {run['baseline_gb']} GB "
+            f"allocated before the run, validation loss {run['val']:.5f}; "
+            f"losses first {loss_line(run['steps'][0])} last {loss_line(run['steps'][-1])}")
+
+    agree = train_card_cpu(data, weights, frozen / "best_model")
+    log(f"train: one fixed batch in f32, card vs CPU on {card}: loss relative errors "
+        f"{agree['loss_rel_err']} (bound {TRAIN_LOSS_TOL}), heads gradients max |diff| / "
+        f"max |CPU| {agree['grad_rel_err']:.3g} (bound {TRAIN_GRAD_TOL})")
+    check(max(agree["loss_rel_err"].values()) <= TRAIN_LOSS_TOL
+          and agree["grad_rel_err"] <= TRAIN_GRAD_TOL, f"train: card vs CPU {agree}")
+
+    pipeline = Pipeline(trainable_config(tuned / "best_model"), device=DEVICE)
+    sync()
+    counts.clear()
+    report = pipeline.run(work / "images", work / "train_out", work / "train.db")
+    sync()
+    launches = dict(counts)
+    log(f"train: Pipeline.run(trainable_vit) on the fine-tuned best_model, report {report}, "
+        f"launches {launches}")
+    expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS // 2,
+                               "match_topk2_colmax": MATCH_BATCHES}, "train path")
+    check_matches(work / "train.db", plain_fused, "train")
+    ex = next(iter(pipeline._extractors.values()))
+    tokens = types.SimpleNamespace(dense_features=lambda imgs: ex.model.backbone_features(
+        preprocess(torch.as_tensor(imgs).to(DEVICE))))
+    check_tokens(tokens, work / "images", "attention_qkv", attention.attention_qkv_plain,
+                 {}, "train")
+    with ColmapDatabase.open_database(work / "train.db") as db:
+        ids = sorted(db.read_images())
+        kpts = [db.read_keypoints(i) for i in ids]
+        descs = [db.read_descriptors(i) for i in ids]
+        n_matches = db.num_matches
+    check(len(ids) == NUM_IMAGES and all(k.shape[1] == 6 and 256 <= len(k) <= MAX_KEYPOINTS
+                                         for k in kpts)
+          and all(d.shape == (len(k), 128) for d, k in zip(descs, kpts)) and n_matches > 0,
+          f"train: database {[k.shape for k in kpts]}, {n_matches} matches")
+    return {"launches": launches, "frozen": first, "resumed": resumed, "train_backbone": bb,
+            "card_cpu": agree, "report": report}
+
+
 def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
                 fixedmax_extractor, int8_ops, max_mhz: float, int8_loop: dict):
     import torch
@@ -3518,6 +3772,7 @@ def main() -> int:
         times, rates, split, f32_ms, matcher = times_phase(
             pipeline, work, work / "images", inputs_main, fixedmax_extractor, int8_ops,
             max_mhz, sass["match_topk2_int8"]["main_loop_opcodes"])
+        train = train_phase(work, work / "vitb14_random.pth")
     check(not POWERLESS, "known-wrong kernels passed a check: " + "; ".join(POWERLESS))
 
     # name -> (source, TPU kernel it replaces, launches on its own path)
@@ -3542,6 +3797,7 @@ def main() -> int:
     paths = {"main": main_launches, "wire": wire["launches"],
              "trainable": trainable["launches"], "vitg14": vitg14["launches"],
              "registers": registers["launches"], "int8": int8["launches"],
+             "train": train["launches"],
              "fixedmax": fixedmax_launches, **{f"paths_{k}": v for k, v in
                                               path_launches.items()}}
     kernels = []
@@ -3567,6 +3823,7 @@ def main() -> int:
         f"sift {sift_result}, scene-50 {scene}, wire {wire}, "
         f"trainable { {k: v for k, v in trainable.items() if k != 'pipeline'} }, "
         f"vitg14 {vitg14}, registers {registers}, int8 {int8}, profile {profile}, "
+        f"train card vs CPU {train['card_cpu']}, "
         f"rates {rates}, "
         f"int8 rows differing from the float matcher {int8_vs_float}, saliency "
         f"{saliency}, attention bound split {split}, f32 attention ms {f32_ms}, "

@@ -700,3 +700,120 @@ def test_relay_epoch_probe_on_cuda(cuda_device):
 
     ms = relay_epoch_probe()
     assert 0.0 < ms < 1000.0
+
+
+class _NumpyDraws:
+    """The same uniforms for every device: a seeded numpy stream, handed to
+    the port's ``draw_uniform`` as a callable."""
+
+    def __init__(self, seed):
+        self.rng = __import__("numpy").random.default_rng(seed)
+
+    def __call__(self, shape):
+        return torch.from_numpy(self.rng.random(shape, dtype="float32"))
+
+
+def _train_step_on(device, state_dicts, batch, seed):
+    """One training step of a tiny f32 model (backbone depth 2, embed 128;
+    narrow heads) on ``device``: (loss, metrics, clipped heads gradients,
+    updated heads), all on the CPU."""
+    from vit_colmap_tpu_torch.models import dinov2, feature_model
+    from vit_colmap_tpu_torch.training import train_step
+
+    bb = dinov2.DinoV2(dinov2.ViTConfig(embed_dim=128, depth=2, num_heads=2, pretrain_grid=4,
+                                        dtype=torch.float32)).to(device)
+    heads = feature_model.FeatureHeads(feature_model.FeatureModelConfig(
+        descriptor_dim=16, hidden=64, trunk_dim=32, dtype=torch.float32), 128).to(device)
+    bb.load_state_dict(state_dicts[0])
+    heads.load_state_dict(state_dicts[1])
+    bb.requires_grad_(False)
+    recipe = train_step.make_optimizer(1e-3, 1e-4, 10, 2)
+    step, _ = train_step.make_train_step(bb, heads, recipe, batch_kwargs=dict(top_k=32))
+    state, metrics = step(train_step.init_train_state(heads, recipe),
+                          {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                          _NumpyDraws(seed))
+    grads = {k: p.grad.cpu() for k, p in heads.named_parameters()}
+    return ({k: float(v) for k, v in metrics.items()}, grads,
+            {k: v.cpu() for k, v in heads.state_dict().items()})
+
+
+@pytest.mark.gpu
+def test_train_step_on_cuda_matches_cpu(cuda_device):
+    """One fixed-batch step (two 112 x 140 images, a conservative random
+    homography, the same uniforms) on the card against the CPU: every loss
+    component within 1e-4 relative, every clipped heads gradient within
+    1e-3 of its tensor's largest; each heads parameter moved at most the
+    step's rate (1e-4), and within 2% of it of the CPU's move where the CPU
+    moved it by at least 0.98 of the rate and its gradient is at least 1%
+    of its tensor's largest (AdamW's first step is about rate * sign(g), so
+    the sign of a gradient below the 1e-3 bound is rounding's)."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.dataloader.synthetic_benchmark import warp_perspective
+    from vit_colmap_tpu_torch.dataloader.synthetic_homography import (
+        SyntheticHomographyConfig,
+        generate_random_homography,
+    )
+    from vit_colmap_tpu_torch.models import dinov2, feature_model
+
+    rng = np.random.default_rng(0)
+    imgs1 = np.stack([rng.integers(0, 256, (112, 140, 3), dtype=np.uint8) for _ in range(2)])
+    Hs = np.stack([generate_random_homography(140, 112, SyntheticHomographyConfig.conservative(),
+                                              rng) for _ in range(2)]).astype(np.float32)
+    batch = {"image1": imgs1,
+             "image2": np.stack([warp_perspective(i, H, (140, 112)) for i, H in zip(imgs1, Hs)]),
+             "H": Hs}
+    g = torch.Generator().manual_seed(1)
+    bb = dinov2.DinoV2(dinov2.ViTConfig(embed_dim=128, depth=2, num_heads=2, pretrain_grid=4,
+                                        dtype=torch.float32), generator=g)
+    heads = feature_model.FeatureHeads(feature_model.FeatureModelConfig(
+        descriptor_dim=16, hidden=64, trunk_dim=32, dtype=torch.float32), 128)
+    feature_model.reset_heads(heads, g)
+    sds = (bb.state_dict(), heads.state_dict())
+    m_cpu, g_cpu, h_cpu = _train_step_on("cpu", sds, batch, seed=2)
+    m_gpu, g_gpu, h_gpu = _train_step_on(cuda_device, sds, batch, seed=2)
+    assert set(m_gpu) == set(m_cpu)
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k] - v) <= 1e-4 * max(abs(v), 1e-3), (k, m_gpu[k], v)
+    for k, v in g_cpu.items():
+        assert (g_gpu[k] - v).abs().max().item() <= 1e-3 * max(v.abs().max().item(), 1e-12), k
+    rate = 1e-4
+    for k, v in h_cpu.items():
+        cpu_move, gpu_move = v - sds[1][k], h_gpu[k] - sds[1][k]
+        assert gpu_move.abs().max().item() <= 1.01 * rate + 1e-7, k
+        big = (cpu_move.abs() >= 0.98 * rate) & (g_cpu[k].abs() >= 0.01 * g_cpu[k].abs().max())
+        diff = (gpu_move - cpu_move)[big].abs()
+        assert diff.numel() == 0 or diff.max().item() <= 0.02 * rate, k
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_cuda(cuda_device, tmp_path):
+    """The trainer on the card (vits14, 56 px synthetic pairs): checkpoints,
+    --resume continuing the step count, best_model into
+    TrainableViTExtractor on the card, and a --train-backbone checkpoint
+    into ViTExtractor."""
+    import json
+
+    from vit_colmap_tpu_torch.features.trainable_vit_extractor import TrainableViTExtractor
+    from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
+    from vit_colmap_tpu_torch.training import train
+    from vit_colmap_tpu_torch.training.checkpoint import load_checkpoint
+
+    args = ["--synthetic-only", "--synthetic-image-size", "56", "--backbone", "vits14",
+            "--batch-size", "2", "--steps-per-epoch", "2", "--top-k", "16"]
+    out = tmp_path / "ckpt"
+    train.main(args + ["--epochs", "1", "--output-dir", str(out)])
+    train.main(args + ["--epochs", "2", "--output-dir", str(out), "--resume",
+                       str(out / "latest")])
+    assert json.loads((out / "meta.json").read_text()) == {
+        "epoch": 2, "step": 4, "train_backbone": False}
+    ex = TrainableViTExtractor(str(out / "best_model"), backbone="vits14", num_keypoints=64)
+    saved = load_checkpoint(out / "best_model")["heads"]
+    for k, v in ex.model.heads.state_dict().items():
+        assert v.device.type == "cuda" and torch.equal(v.cpu(), saved[k]), k
+    bb = tmp_path / "ckpt_bb"
+    train.main(args + ["--epochs", "1", "--output-dir", str(bb), "--train-backbone"])
+    fz = ViTExtractor(str(bb / "latest"), backbone="vits14", max_keypoints=64)
+    saved = load_checkpoint(bb / "latest")["backbone"]
+    for k, v in fz.model.state_dict().items():
+        assert torch.equal(v.cpu(), saved[k]), k

@@ -88,6 +88,17 @@ def test_resize_area_matches_cv2(size):
     assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
 
 
+@pytest.mark.parametrize("size", [(154, 112), (70, 56), (60, 100), (126, 30), (1596, 1190)])
+def test_resize_area_grows_as_cv2(size):
+    """An axis that grows takes OpenCV's bilinear path with area
+    coefficients: the same bytes."""
+    img = np.random.default_rng(size[0]).integers(0, 256, (45, 70, 3), dtype=np.uint8)
+    if size == (1596, 1190):
+        img = _cv2_rgb(SCENE_IMAGE)
+    ref = cv2.resize(img, size, interpolation=cv2.INTER_AREA)
+    np.testing.assert_array_equal(image_io.resize_area(img, *size), ref)
+
+
 def test_unsupported_formats_raise(tmp_path):
     jpg = tmp_path / "x.jpg"
     ok, buf = cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))

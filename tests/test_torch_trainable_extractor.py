@@ -270,7 +270,8 @@ def test_prefixed_backbone_keys_load(tmp_path):
 
 
 def test_unsupported_weights_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
+    # A directory loads only as a checkpoint of the port's trainer.
+    with pytest.raises(FileNotFoundError, match="not a checkpoint of the trainer"):
         TrainableViTExtractor(weights_path=str(tmp_path), device="cpu", **KW)
     with pytest.raises(ValueError, match="expected a .pt"):
         TrainableViTExtractor(weights_path=str(tmp_path / "w.npz"), device="cpu", **KW)

@@ -1,7 +1,9 @@
-"""Rendered multi-view scenes in numpy, without OpenCV.
+"""Rendered benchmarks in numpy, without OpenCV.
 
 Counterpart of ``vit_colmap_tpu/dataloader/synthetic_benchmark.py``'s
-:func:`make_structured_image` and :func:`render_multiview_scene`: the same
+:func:`make_structured_image`, :func:`generate_synthetic_hpatches` (an
+HPatches-layout tree: ``i_*`` / ``v_*`` sequences of ``k.ppm`` images and
+``H_1_k`` homographies) and :func:`render_multiview_scene`: the same
 random draws in the same order (so the same shapes, colours, planes and
 cameras), with numpy versions of the OpenCV calls the reference renders
 with:
@@ -22,8 +24,8 @@ The rings, thick lines and edge pixels are not OpenCV's pixel for pixel, so
 the pixels differ slightly from the reference's
 and the scenes are compared, not held bit for bit
 (``tests/test_torch_render.py``).  Images are written with
-``utils.image_io.write_png``, in OpenCV's BGR channel order, and the poses
-with ``sfm.align.save_gt_poses``.
+``utils.image_io.write_png`` / ``write_ppm``, in OpenCV's BGR channel
+order, and the poses with ``sfm.align.save_gt_poses``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from pathlib import Path
 import numpy as np
 
 from vit_colmap_tpu_torch.sfm.align import save_gt_poses
-from vit_colmap_tpu_torch.utils.image_io import write_png
+from vit_colmap_tpu_torch.utils.image_io import write_png, write_ppm
 
 
 def _cubic_weights(n_in: int, n_out: int) -> np.ndarray:
@@ -61,8 +63,8 @@ def resize_cubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
     h, w, c = img.shape
     wy = _cubic_weights(h, height)
     wx = _cubic_weights(w, width)
-    rows = np.einsum("yh,hwc->ywc", wy, img.astype(np.float64))
-    return np.einsum("xw,ywc->yxc", wx, rows).astype(np.float32)
+    rows = (wy @ img.astype(np.float64).reshape(h, w * c)).reshape(height, w, c)
+    return np.matmul(wx, rows).astype(np.float32)  # (width, w) @ (height, w, c)
 
 
 def _pixel_grid(h: int, w: int):
@@ -102,23 +104,55 @@ def fill_circle(img: np.ndarray, center, radius: int, color, thickness: int) -> 
     if thickness < 0:
         _disc(img, center, radius, color)
         return
-    xx, yy = _pixel_grid(*img.shape[:2])
-    d = np.hypot(xx - center[0], yy - center[1])
-    img[np.abs(d - radius) <= 0.75 * thickness] = color
+    r = radius + 0.75 * thickness + 1
+    y0, x0, sub = _box(img, center[0] - r, center[0] + r, center[1] - r, center[1] + r)
+    xx, yy = _pixel_grid(*sub.shape[:2])
+    d = np.hypot(xx + x0 - center[0], yy + y0 - center[1])
+    sub[np.abs(d - radius) <= 0.75 * thickness] = color
+
+
+def _box(img: np.ndarray, x_lo: float, x_hi: float, y_lo: float, y_hi: float):
+    """(y0, x0, view) of the pixels of ``img`` in [x_lo, x_hi] x [y_lo,
+    y_hi], clipped to the image: only they can be drawn."""
+    h, w = img.shape[:2]
+    x0, x1 = int(max(np.floor(x_lo), 0)), int(min(np.ceil(x_hi) + 1, w))
+    y0, y1 = int(max(np.floor(y_lo), 0)), int(min(np.ceil(y_hi) + 1, h))
+    return y0, x0, img[y0:max(y1, y0), x0:max(x1, x0)]
+
+
+def _convex_margin(p: np.ndarray) -> float:
+    """How far beyond the vertices of a convex polygon (k, 2) its
+    half-planes widened by half a pixel reach: the miter 0.5 / sin(a / 2)
+    at its sharpest angle a, plus one pixel; infinite for a polygon so thin
+    (twice its area at most half its perimeter) that the widened
+    half-planes may hold a strip along it."""
+    k = len(p)
+    edges = np.roll(p, -1, axis=0) - p
+    lengths = np.hypot(edges[:, 0], edges[:, 1])
+    area2 = abs(float(np.sum(p[:, 0] * np.roll(p[:, 1], -1) - np.roll(p[:, 0], -1) * p[:, 1])))
+    if area2 <= 0.5 * lengths.sum() or lengths.min() == 0:
+        return np.inf
+    cos = [-(edges[i - 1] @ edges[i]) / (lengths[i - 1] * lengths[i]) for i in range(k)]
+    half = np.arccos(np.clip(cos, -1.0, 1.0)) / 2.0
+    return 0.5 / max(float(np.sin(half).min()), 1e-12) + 1.0
 
 
 def _fill_convex(img: np.ndarray, pts: np.ndarray, color) -> None:
     """Pixel centres inside a convex polygon (k, 2), or within half a pixel
     of an edge (the rasterizer also fills the edges' pixels), in place."""
-    xx, yy = _pixel_grid(*img.shape[:2])
     p = pts.astype(np.float64)
+    m = _convex_margin(p)
+    y0, x0, sub = _box(img, p[:, 0].min() - m, p[:, 0].max() + m, p[:, 1].min() - m,
+                       p[:, 1].max() + m)
+    xx, yy = _pixel_grid(*sub.shape[:2])
+    xx, yy = xx + x0, yy + y0
     side = []
     for i in range(len(p)):
         a, b = p[i], p[(i + 1) % len(p)]
         edge = max(float(np.hypot(*(b - a))), 1e-9)
         side.append(((b[0] - a[0]) * (yy - a[1]) - (b[1] - a[1]) * (xx - a[0])) / edge)
     s = np.stack(side)
-    img[(s >= -0.5).all(0) | (s <= 0.5).all(0)] = color
+    sub[(s >= -0.5).all(0) | (s <= 0.5).all(0)] = color
 
 
 def fill_triangle(img: np.ndarray, pts: np.ndarray, color) -> None:
@@ -264,6 +298,58 @@ def make_structured_image(rng: np.random.Generator, h: int = 480, w: int = 640) 
             p2 = (int(rng.integers(0, w)), int(rng.integers(0, h)))
             draw_line(img, p1, p2, color, int(rng.integers(1, 5)))
     return gaussian_blur_u8(img, 1.0)
+
+
+def _photometric_variant(rng: np.random.Generator, img: np.ndarray) -> np.ndarray:
+    """Illumination change: gamma + gain/bias + mild noise (H = identity)."""
+    gamma = float(rng.uniform(0.55, 1.7))
+    gain = float(rng.uniform(0.7, 1.25))
+    bias = float(rng.uniform(-25, 25))
+    x = (img.astype(np.float32) / 255.0) ** gamma
+    x = x * 255.0 * gain + bias
+    x += rng.normal(0, 2.0, img.shape)
+    return np.clip(x, 0, 255).astype(np.uint8)
+
+
+def generate_synthetic_hpatches(
+    root: Path,
+    n_illum: int = 4,
+    n_view: int = 6,
+    n_img: int = 6,
+    size: tuple[int, int] = (480, 640),
+    seed: int = 0,
+    preset: str = "moderate",
+) -> list[str]:
+    """Write an HPatches-layout tree under ``root``: ``n_illum`` illumination
+    sequences (photometric variants, H = identity) and ``n_view`` viewpoint
+    sequences (the base image warped by random homographies), each of
+    ``n_img`` PPM images of ``size`` (h, w) and their ``H_1_k`` files; the
+    reference's draws in its order.  Returns the sequence names."""
+    from vit_colmap_tpu_torch.dataloader.synthetic_homography import (
+        SyntheticHomographyConfig,
+        generate_random_homography,
+    )
+
+    root = Path(root)
+    h, w = size
+    cfg = getattr(SyntheticHomographyConfig, preset)()
+    rng = np.random.default_rng(seed)
+    names = [f"i_synth{k}" for k in range(n_illum)] + [f"v_synth{k}" for k in range(n_view)]
+    for name in names:
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        base = make_structured_image(rng, h, w)
+        write_ppm(d / "1.ppm", base[..., ::-1])  # OpenCV writes BGR arrays
+        for j in range(2, n_img + 1):
+            if name.startswith("i_"):
+                H = np.eye(3)
+                img_j = _photometric_variant(rng, base)
+            else:
+                H = generate_random_homography(w, h, cfg, rng)
+                img_j = warp_perspective(base, H, (w, h))
+            write_ppm(d / f"{j}.ppm", img_j[..., ::-1])
+            np.savetxt(str(d / f"H_1_{j}"), H)
+    return names
 
 
 # The scene: far backdrop plus two slanted near planes (corners, texture size).

@@ -12,8 +12,9 @@ scale 1, orientation, score, 0).
 
 Weights: a reference-trained ``.pt``/``.pth`` (``models/convert.
 load_torch_feature_model``: BatchNorms folded, norm-free heads, and the
-embedded backbone when there is one), or none (random init).  Training
-checkpoint directories raise until the port has its training stack.
+embedded backbone when there is one), a checkpoint directory of the port's
+trainer (``training/checkpoint.py``: GroupNorm heads, and the fine-tuned
+backbone of a ``--train-backbone`` run), or none (random init).
 """
 
 from __future__ import annotations
@@ -71,13 +72,11 @@ class TrainableViTExtractor(BaseExtractor):
         self.image_batch = image_batch
         self.device = resolve_device(device)
 
-        if weights_path and Path(weights_path).is_dir():
-            raise NotImplementedError(
-                "training checkpoint directories are not ported yet (ROADMAP.md item "
-                "9, the training stack); pass a reference-trained torch .pt")
+        is_dir = bool(weights_path) and Path(weights_path).is_dir()
         is_torch_ckpt = bool(weights_path) and str(weights_path).endswith((".pt", ".pth"))
-        if weights_path and not is_torch_ckpt:
-            raise ValueError(f"{weights_path}: expected a .pt or .pth checkpoint")
+        if weights_path and not (is_dir or is_torch_ckpt):
+            raise ValueError(f"{weights_path}: expected a .pt or .pth checkpoint or a "
+                             "checkpoint directory of the trainer")
         # Reference checkpoints carry eval-mode BatchNorms, folded into the
         # convs: their heads are norm-free.
         self.model, self.cfg, self.bcfg = make_feature_model(
@@ -85,6 +84,8 @@ class TrainableViTExtractor(BaseExtractor):
             generator=torch.Generator().manual_seed(seed))
         if is_torch_ckpt:
             self._load_torch_checkpoint(str(weights_path))
+        elif is_dir:
+            self._load_checkpoint(str(weights_path))
         else:
             logger.warning("No checkpoint provided; trainable heads are randomly initialized")
         self.model.to(self.device).eval().requires_grad_(False)
@@ -102,6 +103,18 @@ class TrainableViTExtractor(BaseExtractor):
                 logger.warning("Ignoring backbone keys %s", unexpected)
             logger.info("Restored the embedded DINOv2 backbone from %s", path)
         logger.info("Loaded the trained heads from %s", path)
+
+    def _load_checkpoint(self, path: str) -> None:
+        """A checkpoint directory of the port's trainer: its heads, and its
+        backbone when the run fine-tuned one."""
+        from vit_colmap_tpu_torch.training.checkpoint import load_checkpoint
+
+        ckpt = load_checkpoint(path)
+        self.model.heads.load_state_dict(ckpt["heads"])
+        if "backbone" in ckpt:
+            self.model.backbone.load_state_dict(ckpt["backbone"])
+            logger.info("Restored the fine-tuned backbone from %s", path)
+        logger.info("Loaded the trainable-head checkpoint from %s", path)
 
     # -------------------------------------------------------------- device
     @torch.no_grad()

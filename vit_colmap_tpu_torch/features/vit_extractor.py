@@ -16,9 +16,12 @@ reference's cv2 path does.
 ``quantize="int8"`` runs the backbone's transformer matmuls through
 ``QuantDense`` (int8 weights and activations, int32 products).
 
-Not ported yet (raise): orbax checkpoint directories as ``weights_path``,
-and the reference's native JPEG decoder (full-range I420 straight from
-libjpeg).
+``weights_path`` is a torch DINOv2 ``.pth``, or a checkpoint directory of
+the port's trainer run with ``--train-backbone`` (its fine-tuned backbone;
+a heads-only directory raises).
+
+Not ported yet (raises): the reference's native JPEG decoder (full-range
+I420 straight from libjpeg).
 """
 
 from __future__ import annotations
@@ -117,11 +120,20 @@ class ViTExtractor(BaseExtractor):
             generator=generator,
         )
         if weights_path and Path(weights_path).is_dir():
-            raise NotImplementedError(
-                "orbax checkpoint directories are not ported yet; pass a torch "
-                "DINOv2 state dict (.pth)"
-            )
-        if weights_path:
+            # A checkpoint directory of the trainer's --train-backbone run:
+            # the fine-tuned backbone drives the frozen extraction path.
+            from vit_colmap_tpu_torch.training.checkpoint import load_checkpoint
+
+            ckpt = load_checkpoint(weights_path)
+            if "backbone" not in ckpt:
+                raise ValueError(
+                    f"{weights_path} holds no backbone params (heads-only "
+                    "checkpoint?); the frozen ViTExtractor needs a "
+                    "--train-backbone checkpoint or a torch .pth file"
+                )
+            self.model.load_state_dict(ckpt["backbone"])
+            logger.info("Loaded fine-tuned backbone from %s", weights_path)
+        elif weights_path:
             from vit_colmap_tpu_torch.models.convert import load_torch_checkpoint
 
             logger.info("Loading backbone weights from %s", weights_path)

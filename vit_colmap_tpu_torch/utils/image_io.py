@@ -16,9 +16,11 @@ with OpenCV's two conversions: a colour PNG goes through libpng's
 ``png_set_rgb_to_gray`` (BT.601 weights in 15-bit fixed point, truncated), a
 PPM through ``cvtColor`` (14-bit fixed point, rounded).
 
-``resize_area`` is ``INTER_AREA`` for downscaling: each output pixel is the
-area-weighted mean of the input pixels its footprint overlaps, built as two
-separable weight matrices.
+``resize_area`` is ``INTER_AREA``: when neither axis grows, each output
+pixel is the area-weighted mean of the input pixels its footprint overlaps,
+built as two separable weight matrices; when an axis grows, OpenCV's
+bilinear resize with its area coefficients and 11-bit fixed-point
+arithmetic (the same bytes as ``cv2.resize``).
 """
 
 from __future__ import annotations
@@ -219,6 +221,13 @@ def write_png(path, rgb: np.ndarray) -> None:
     )
 
 
+def write_ppm(path, rgb: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 RGB as a binary PPM (P6, maxval 255)."""
+    img = np.ascontiguousarray(rgb, dtype=np.uint8)
+    h, w = img.shape[:2]
+    Path(path).write_bytes(b"P6\n%d %d\n255\n" % (w, h) + img.tobytes())
+
+
 def area_weights(n_in: int, n_out: int) -> np.ndarray:
     """(n_out, n_in) INTER_AREA weights: output pixel i covers the input
     interval [i*s, (i+1)*s) with s = n_in / n_out, each input pixel weighted
@@ -233,12 +242,48 @@ def area_weights(n_in: int, n_out: int) -> np.ndarray:
     return overlap / s
 
 
+def _area_linear_coeffs(n_in: int, n_out: int):
+    """OpenCV's ``INTER_AREA`` coefficients on its bilinear path (an axis
+    grows): per output index the source index and the two weights in
+    11-bit fixed point."""
+    inv_scale = n_out / n_in
+    dx = np.arange(n_out)
+    sx = np.floor(dx * (1.0 / inv_scale)).astype(np.int64)
+    fx = ((dx + 1) - (sx + 1) * inv_scale).astype(np.float32)
+    fx = np.where(fx <= 0, np.float32(0), fx - np.floor(fx)).astype(np.float32)
+    fx = np.where(sx < 0, np.float32(0), fx)
+    sx = np.maximum(sx, 0)
+    last = sx >= n_in - 1
+    fx = np.where(last, np.float32(0), fx)
+    sx = np.where(last, n_in - 1, sx)
+    scale = np.float32(1 << 11)
+    return sx, np.rint((np.float32(1) - fx) * scale).astype(np.int64), np.rint(
+        fx * scale).astype(np.int64)
+
+
+def _resize_area_growing(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """OpenCV's uint8 bilinear resize on area coefficients: rows in 11-bit
+    fixed point, then columns as its vector code rounds them (products'
+    high halves of the rows shifted by 4, plus 2, shifted by 2)."""
+    h, w = img.shape[:2]
+    sx, ax0, ax1 = _area_linear_coeffs(w, width)
+    sy, by0, by1 = _area_linear_coeffs(h, height)
+    src = img.astype(np.int64)
+    rows = (src[:, sx] * ax0[None, :, None]
+            + src[:, np.minimum(sx + 1, w - 1)] * ax1[None, :, None])
+    s0, s1 = rows[sy] >> 4, rows[np.minimum(sy + 1, h - 1)] >> 4
+    out = ((s0 * by0[:, None, None]) >> 16) + ((s1 * by1[:, None, None]) >> 16)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+
+
 def resize_area(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """(H, W, C) uint8 -> (height, width, C) uint8, like ``cv2.resize(img,
-    (width, height), interpolation=cv2.INTER_AREA)`` when downscaling."""
+    """(H, W, C) uint8 -> (height, width, C) uint8, as ``cv2.resize(img,
+    (width, height), interpolation=cv2.INTER_AREA)``."""
     h, w = img.shape[:2]
     if (h, w) == (height, width):
         return img
+    if width > w or height > h:
+        return _resize_area_growing(img, width, height)
     wy = area_weights(h, height)
     wx = area_weights(w, width)
     c = img.shape[2]
