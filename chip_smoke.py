@@ -94,7 +94,19 @@ Phases, one flushed line each with elapsed seconds:
    products of two layers bit for bit against the CPU, and with a
    per-tensor weight scale; tokens against the CPU's and against bf16's;
    warm rates beside bf16's in turns); and one ``Pipeline.run`` with a
-   profile directory (a trace file and the three timer stages);
+   profile directory (a trace file and the three timer stages); then the
+   hybrid: the 8 images through ``Pipeline.run(extractor_type="hybrid")``
+   (OpenCV's SIFT detector in PyTorch on the card, ViT-B/14 descriptors,
+   the main path's PCA loaded from a file: kernel 1 in every layer, kernel
+   2 once), its tokens and matches against the plain versions, and each of
+   the four detectors on one 1190 x 1596 image card against CPU (FAST and
+   GFTT equal, SIFT and ORB within the bar) with its card milliseconds;
+   serve: one ``PipelineServer`` (the vit extractor) on the 8 images, a
+   copy of them and a plain file in place of a directory (results [True,
+   True, False], one extractor built, kernel 1 96 times on the first job
+   and 48 on the warm second); device loops: ``device_extract_pipelined``
+   on the 8 staged images (the device rate) and ``device_extract_looped``'s
+   checksum against separate calls;
 6. times: CUDA-event medians of each kernel, its plain version and one
    PyTorch library call computing the same function (kernels 1 and 3 also
    in f32), each kernel's mean over calls run back to back beside its
@@ -124,7 +136,8 @@ Phases, one flushed line each with elapsed seconds:
 
 Every path (the main one, each of 5a-5d, calibrated verification, the
 mapper, SIFT, the 50-view scene, the wire, the trainable path, vitg14,
-registers, int8 and the train path's Pipeline.run) is driven with the kernels'
+registers, int8, the hybrid, each serve job, the device loops and the train
+path's Pipeline.run) is driven with the kernels'
 launch counts set to 0 just before it and read just after; each kernel
 must have launched on its path, and the kernels it replaces must not have
 (verification, the mapper and SIFT launch none of the five).
@@ -146,6 +159,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 T0 = time.perf_counter()
 DEVICE = "cuda"  # the one device driven; a CPU rehearsal sets "cpu"
@@ -1302,7 +1316,7 @@ def expect_launches(launches: dict, expected: dict, path: str) -> None:
         check(got == want, f"{path}: {name} launched {got} times, expected {want}")
 
 
-def check_database(db_path: Path):
+def check_database(db_path: Path, label: str = "slice"):
     from vit_colmap_tpu_torch.database import ColmapDatabase
 
     with ColmapDatabase.open_database(db_path) as db:
@@ -1326,13 +1340,13 @@ def check_database(db_path: Path):
         check(bool(np.isfinite(k).all()) and k[:, 0].min() >= 0
               and k[:, 0].max() <= WIDTH and k[:, 1].max() <= HEIGHT,
               "keypoints outside the image")
-    log(f"slice: database {n_img} images, {n_kp} keypoints, {n_pairs} matched "
+    log(f"{label}: database {n_img} images, {n_kp} keypoints, {n_pairs} matched "
         f"pairs, {n_matches} matches; consecutive pairs {per_shift}")
     return {"images": n_img, "keypoints": n_kp, "matched_pairs": n_pairs,
-            "matches": n_matches, **check_geometries(db_path)}
+            "matches": n_matches, **check_geometries(db_path, label)}
 
 
-def check_geometries(db_path: Path) -> dict:
+def check_geometries(db_path: Path, label: str = "slice") -> dict:
     """The main path's two-view geometries.  Consecutive images differ by
     one shift of SHIFT_PX along x (synthetic_images), a pure image
     translation: every consecutive pair must verify, as
@@ -1369,7 +1383,7 @@ def check_geometries(db_path: Path) -> dict:
                   f"pair {(a, b)}: {len(inl)} inliers depart from the {SHIFT_PX} px "
                   f"shift by {q50:.2f} px (median) and {q90:.2f} px (90th percentile); "
                   f"threshold {tol} px")
-    log(f"slice: two_view_geometries {n_verified} pairs; every consecutive pair "
+    log(f"{label}: two_view_geometries {n_verified} pairs; every consecutive pair "
         f"PLANAR_OR_PANORAMIC, (inliers, median and 90th-percentile departure in px "
         f"from the {SHIFT_PX} px shift) {pairs}")
     return {"verified_pairs": n_verified, "consecutive": pairs}
@@ -3485,6 +3499,206 @@ def train_phase(work: Path, weights: Path) -> dict:
             "card_cpu": agree, "report": report}
 
 
+# The hybrid, serve and device-loops phases.  The detectors on one
+# structured image at the main path's size, card against CPU: FAST and
+# GFTT must be equal; SIFT and ORB are held to tests/test_torch_cv_detectors.py's
+# bar against OpenCV (counts within 2%, 95% of the distinct points within
+# 0.05 px both ways).
+DETECTOR_TOL = 0.05
+DETECTOR_SHARE = 0.95
+DETECTOR_COUNT_REL = 0.02
+DETECTOR_REPS = 3
+DEVICE_LOOP_REPS = 3  # back-to-back extractions of the 8 staged images
+LOOPED_REPS = 2
+LOOPED_REL = 1e-6  # looped checksum against two separate calls'
+
+
+def detector_calls() -> dict:
+    """The hybrid's four detectors at its settings (max_keypoints 4096)."""
+    from vit_colmap_tpu_torch.ops import cv_detectors as cd
+
+    return {"sift": lambda g: cd.detect_sift(g, MAX_KEYPOINTS),
+            "fast": cd.detect_fast,
+            "gftt": lambda g: cd.detect_gftt(g, MAX_KEYPOINTS),
+            "orb": lambda g: cd.detect_orb(g, MAX_KEYPOINTS)}
+
+
+def detectors_check() -> dict:
+    """Each detector on one 1190x1596 structured image (seed 0) on the card
+    and on the CPU, its card milliseconds (median of DETECTOR_REPS) and the
+    kernels one call runs (``torch.profiler``)."""
+    import numpy as np
+    import torch
+
+    from vit_colmap_tpu_torch.dataloader.synthetic_benchmark import make_structured_image
+    from vit_colmap_tpu_torch.ops.cv_detectors import point_agreement
+    from vit_colmap_tpu_torch.utils.image_io import rgb_to_gray
+
+    gray = torch.from_numpy(rgb_to_gray(make_structured_image(np.random.default_rng(0),
+                                                              HEIGHT, WIDTH)))
+    gray_dev = gray.to(DEVICE)
+    out = {}
+    for name, fn in detector_calls().items():
+        t = time.perf_counter()
+        ref = fn(gray)
+        cpu_s = time.perf_counter() - t
+        card = [x.cpu() for x in fn(gray_dev)]
+        equal = torch.equal(card[0], ref[0]) and torch.equal(card[1], ref[1])
+        agree = point_agreement(ref[0], card[0], DETECTOR_TOL)
+        ms = cuda_ms(lambda: fn(gray_dev), DETECTOR_REPS)
+        calls = profiled(lambda: fn(gray_dev)) if DEVICE == "cuda" else {}
+        out[name] = {"keypoints": len(card[0]), "card_ms": ms, "cpu_s": cpu_s,
+                     "equal": equal, **agree, **calls}
+        log(f"hybrid: detector {name} on {WIDTH}x{HEIGHT}: {len(card[0])} keypoints "
+            f"(CPU {len(ref[0])}), card {ms:.2f} ms ({calls}), CPU {cpu_s:.2f} s, "
+            f"bit-equal {equal}, agreement {agree}")
+    for name, r in out.items():
+        if name in ("fast", "gftt"):
+            check(r["equal"], f"hybrid: {name} on the card differs from the CPU: {r}")
+        else:
+            check(r["count_rel"] <= DETECTOR_COUNT_REL
+                  and min(r["share_ref"], r["share_out"]) >= DETECTOR_SHARE,
+                  f"hybrid: {name} card vs CPU misses the bar: {r}")
+    return out
+
+
+def hybrid_config(weights: Path, pca: Optional[Path] = None, extractor: str = "hybrid"):
+    from vit_colmap_tpu_torch.utils.config import Config
+
+    config = Config()
+    config.extractor.extractor_type = extractor
+    config.extractor.backbone = "vitb14"
+    config.extractor.vit_weights_path = str(weights)
+    config.extractor.max_keypoints = MAX_KEYPOINTS
+    config.extractor.image_batch = IMAGE_BATCH
+    config.extractor.pca_path = str(pca) if pca else None
+    config.matching.pair_batch = PAIR_BATCH
+    return config
+
+
+def hybrid_phase(work: Path, vit_extractor, weights: Path) -> dict:
+    """The slice's 8 images through ``Pipeline.run(extractor_type="hybrid")``
+    (OpenCV's SIFT detector on the card, ViT-B/14 descriptors), with the
+    main path's PCA saved to a file so the run is warm: counts cleared,
+    kernel 1 in every layer (48) and kernel 2 once; the dense tokens and the
+    matches against their plain versions; then the four detectors card
+    against CPU."""
+    import types
+
+    from vit_colmap_tpu_torch.kernels import attention
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.ops.interpolate import save_pca
+    from vit_colmap_tpu_torch.pipeline import Pipeline
+
+    pca = work / "slice_pca.npz"
+    save_pca(pca, *vit_extractor._pca)
+    pipeline = Pipeline(hybrid_config(weights, pca), device=DEVICE)
+    sync()
+    counts.clear()
+    t = time.perf_counter()
+    report = pipeline.run(work / "images", work / "hybrid_out", work / "hybrid.db")
+    sync()
+    wall = time.perf_counter() - t
+    launches = dict(counts)
+    log(f"hybrid: Pipeline.run in {wall:.1f} s, report {report}, launches {launches}")
+    expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS // 2,
+                               "match_topk2_colmax": MATCH_BATCHES}, "hybrid path")
+    db_counts = check_database(work / "hybrid.db", "hybrid")
+    hybrid = next(iter(pipeline._extractors.values()))
+    check_tokens(types.SimpleNamespace(dense_features=hybrid._dense_features),
+                 work / "images", "attention_qkv", attention.attention_qkv_plain, {}, "hybrid")
+    check_matches(work / "hybrid.db", plain_fused, "hybrid")
+    return {"wall_s": wall, "report": report, "launches": launches, "database": db_counts,
+            "detectors": detectors_check()}
+
+
+def serve_phase(work: Path, weights: Path) -> dict:
+    """One PipelineServer on the card (the vit extractor, no PCA file) runs
+    the 8 images, a copy of them in a second directory, and a job whose
+    image_dir is a plain file: results [True, True, False], one extractor
+    built; the first job fits the PCA (kernel 1 96 times), the second
+    reuses the warm extractor and the built kernels (48)."""
+    import shutil
+
+    from vit_colmap_tpu_torch.database import ColmapDatabase
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.pipeline.serve import PipelineServer, SceneJob
+
+    copy = work / "serve_copy"
+    shutil.copytree(work / "images", copy)
+    not_a_dir = work / "serve_not_a_dir"
+    not_a_dir.write_text("a plain file where a directory should be")
+    server = PipelineServer(hybrid_config(weights, extractor="vit"), device=DEVICE)
+    jobs = [SceneJob(image_dir=d, output_dir=work / f"serve_{i}")
+            for i, d in enumerate((work / "images", copy, not_a_dir))]
+    launches = []
+    for job in jobs:
+        sync()
+        counts.clear()
+        server.run_job(job)
+        sync()
+        launches.append(dict(counts))
+    results = server.results
+    walls = [round(r.wall_s, 3) for r in results]
+    log(f"serve: jobs ok {[r.ok for r in results]}, wall_s {walls}, launches {launches}, "
+        f"extractors built {len(server.pipeline._extractors)}, reports "
+        f"{[r.report for r in results[:2]]}, error {results[2].error}")
+    check([r.ok for r in results] == [True, True, False],
+          f"serve: job results {[r.ok for r in results]}")
+    check(len(server.pipeline._extractors) == 1,
+          f"serve: {len(server.pipeline._extractors)} extractors built")
+    expect_launches(launches[0], {"attention_qkv": BACKBONE_LAYERS,
+                                  "match_topk2_colmax": MATCH_BATCHES}, "serve job 1")
+    expect_launches(launches[1], {"attention_qkv": BACKBONE_LAYERS // 2,
+                                  "match_topk2_colmax": MATCH_BATCHES}, "serve job 2")
+    rows = []
+    for i in range(2):
+        with ColmapDatabase.open_database(work / f"serve_{i}" / "database.db") as db:
+            ids = sorted(db.read_images())
+            rows.append([db.read_keypoints(k).tobytes() for k in ids])
+    log(f"serve: job 2's keypoints equal job 1's: {rows[0] == rows[1]}")
+    total = {}
+    for n in launches:
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+    return {"wall_s": walls, "ok": [r.ok for r in results], "launches": total,
+            "same_keypoints": rows[0] == rows[1]}
+
+
+def device_loops_phase(work: Path, extractor) -> dict:
+    """The main path's ViTExtractor on its 8 images staged on the card:
+    ``device_extract_pipelined`` gives the device rate; the checksum of
+    ``device_extract_looped`` must equal the same checksum summed from
+    separate ``extract_batch_async`` calls."""
+    import numpy as np
+    import torch
+
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.utils.image_io import imread_rgb
+
+    imgs = np.stack([imread_rgb(f) for f in sorted((work / "images").iterdir())])
+    staged = torch.from_numpy(extractor.to_wire(imgs)).to(DEVICE)
+    sync()
+    counts.clear()
+    secs = extractor.device_extract_pipelined(staged, DEVICE_LOOP_REPS)
+    launches = dict(counts)
+    rate = DEVICE_LOOP_REPS * len(imgs) / secs
+    looped = float(extractor.device_extract_looped(staged, LOOPED_REPS))
+    acc = torch.zeros((), dtype=torch.float32, device=DEVICE)
+    with torch.no_grad():
+        for i in range(LOOPED_REPS):
+            _, sc, _, desc = extractor.extract_batch_async(staged + i, packed=True)[:4]
+            acc = acc + sc.sum(dtype=torch.float32) + desc.sum(dtype=torch.int32).to(torch.float32)
+    separate = float(acc)
+    log(f"device loops: device_extract_pipelined {DEVICE_LOOP_REPS} x {len(imgs)} images in "
+        f"{secs:.3f} s ({rate:.2f} img/s), launches {launches}; looped checksum {looped!r}, "
+        f"separate calls {separate!r} (bit-equal {looped == separate})")
+    check(abs(looped - separate) <= LOOPED_REL * abs(separate),
+          f"device loops: looped checksum {looped} vs separate calls {separate}")
+    return {"pipelined_s": secs, "img_per_s": rate, "looped": looped, "separate": separate,
+            "launches": launches}
+
+
 def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
                 fixedmax_extractor, int8_ops, max_mhz: float, int8_loop: dict):
     import torch
@@ -3769,6 +3983,9 @@ def main() -> int:
         registers = registers_phase(work)
         int8 = int8_phase(work, extractor, work / "vitb14_random.pth")
         profile = profile_phase(work, work / "trainable_heads.pt")
+        hybrid = hybrid_phase(work, extractor, work / "vitb14_random.pth")
+        serve = serve_phase(work, work / "vitb14_random.pth")
+        loops = device_loops_phase(work, extractor)
         times, rates, split, f32_ms, matcher = times_phase(
             pipeline, work, work / "images", inputs_main, fixedmax_extractor, int8_ops,
             max_mhz, sass["match_topk2_int8"]["main_loop_opcodes"])
@@ -3797,7 +4014,8 @@ def main() -> int:
     paths = {"main": main_launches, "wire": wire["launches"],
              "trainable": trainable["launches"], "vitg14": vitg14["launches"],
              "registers": registers["launches"], "int8": int8["launches"],
-             "train": train["launches"],
+             "train": train["launches"], "hybrid": hybrid["launches"],
+             "serve": serve["launches"], "device_loops": loops["launches"],
              "fixedmax": fixedmax_launches, **{f"paths_{k}": v for k, v in
                                               path_launches.items()}}
     kernels = []
@@ -3824,6 +4042,8 @@ def main() -> int:
         f"trainable { {k: v for k, v in trainable.items() if k != 'pipeline'} }, "
         f"vitg14 {vitg14}, registers {registers}, int8 {int8}, profile {profile}, "
         f"train card vs CPU {train['card_cpu']}, "
+        f"hybrid { {k: v for k, v in hybrid.items() if k != 'launches'} }, serve {serve}, "
+        f"device loops {loops}, "
         f"rates {rates}, "
         f"int8 rows differing from the float matcher {int8_vs_float}, saliency "
         f"{saliency}, attention bound split {split}, f32 attention ms {f32_ms}, "

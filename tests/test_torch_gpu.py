@@ -817,3 +817,67 @@ def test_checkpoint_round_trip_on_cuda(cuda_device, tmp_path):
     saved = load_checkpoint(bb / "latest")["backbone"]
     for k, v in fz.model.state_dict().items():
         assert torch.equal(v.cpu(), saved[k]), k
+
+
+def _detector_image(h=480, w=640, seed=0):
+    import numpy as np
+
+    from vit_colmap_tpu_torch.dataloader.synthetic_benchmark import make_structured_image
+    from vit_colmap_tpu_torch.utils.image_io import rgb_to_gray
+
+    return torch.from_numpy(rgb_to_gray(make_structured_image(np.random.default_rng(seed), h, w)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fast", "gftt", "orb", "sift"])
+def test_cv_detector_on_cuda_matches_cpu(cuda_device, name):
+    """The OpenCV detectors on the card against the CPU on a 480 x 640
+    structured image: FAST and GFTT equal (points, responses, order); ORB
+    and SIFT held to the bar of tests/test_torch_cv_detectors.py (counts
+    within 2%, 95% of the points within 0.05 px both ways)."""
+    from vit_colmap_tpu_torch.ops import cv_detectors as cd
+
+    fn = {"fast": cd.detect_fast, "gftt": lambda g: cd.detect_gftt(g, 4096),
+          "orb": lambda g: cd.detect_orb(g, 4096), "sift": lambda g: cd.detect_sift(g, 4096)}[name]
+    gray = _detector_image()
+    ref_pts, ref_resp = fn(gray)
+    pts, resp = (t.cpu() for t in fn(gray.to(cuda_device)))
+    assert len(ref_pts) > 100
+    if name in ("fast", "gftt"):
+        assert torch.equal(pts, ref_pts) and torch.equal(resp, ref_resp)
+    else:
+        agree = cd.point_agreement(ref_pts, pts)
+        assert agree["count_rel"] <= 0.02 and min(agree["share_ref"], agree["share_out"]) >= 0.95
+
+
+@pytest.mark.gpu
+def test_hybrid_extractor_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """HybridExtractor.extract (vits14, f32, FAST) on two 224 x 308 views,
+    card against CPU with one PCA file: equal keypoints, descriptor bytes
+    within 1 and 99% of them equal."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.database import ColmapDatabase
+    from vit_colmap_tpu_torch.dataloader.synthetic_benchmark import make_structured_image
+    from vit_colmap_tpu_torch.features.hybrid_extractor import HybridExtractor
+    from vit_colmap_tpu_torch.utils.image_io import write_png
+
+    images = tmp_path / "images"
+    images.mkdir()
+    base = make_structured_image(np.random.default_rng(1), 224, 336)
+    for i in range(2):
+        write_png(images / f"v{i}.png", base[:, 14 * i : 14 * i + 308])
+    rows = {}
+    for dev in ("cpu", cuda_device):
+        ex = HybridExtractor(backbone="vits14", detector="fast", max_keypoints=512,
+                             dtype=torch.float32, pca_path=str(tmp_path / "pca.npz"),
+                             seed=2, device=dev)
+        ex.extract(images, tmp_path / f"{str(dev)}.db", "SIMPLE_PINHOLE")
+        with ColmapDatabase.open_database(tmp_path / f"{str(dev)}.db") as db:
+            rows[str(dev)] = [(db.read_keypoints(i), db.read_descriptors(i))
+                              for i in sorted(db.read_images())]
+    for (rk, rd), (k, d) in zip(rows["cpu"], rows[str(cuda_device)]):
+        assert len(rk) > 50
+        np.testing.assert_array_equal(k, rk)
+        diff = np.abs(d.astype(int) - rd.astype(int))
+        assert diff.max() <= 1 and (diff == 0).mean() >= 0.99

@@ -206,13 +206,13 @@ def test_pipeline_cli_runs_slice_on_cpu(tmp_path, tiny_backbone, images):
 
 @pytest.mark.parametrize("skip", [(), ("verification",)])
 def test_unported_stages_raise(tmp_path, images, skip):
-    """An extractor the port lacks (the hybrid) raises before any stage
-    runs, with verification on or skipped and reconstruction on."""
+    """An unknown extractor type raises before any stage runs and leaves no
+    database, with verification on or skipped and reconstruction on."""
     cfg = Config()
-    cfg.extractor.extractor_type = "hybrid"
+    cfg.extractor.extractor_type = "surf"
     cfg.matching.do_verification = "verification" not in skip
     cfg.do_reconstruction = True
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="Unknown extractor type"):
         Pipeline(cfg, device="cpu").run(images, tmp_path / "o", tmp_path / "d.db")
     assert not (tmp_path / "d.db").exists()
 

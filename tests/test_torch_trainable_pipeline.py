@@ -157,7 +157,10 @@ def test_cli_trainable_vit_with_profile_dir(tmp_path):
 
 
 def test_hybrid_still_raises(tmp_path):
+    """Every extractor is ported, the hybrid included: only an unknown
+    extractor type raises, before any stage runs and without a database."""
     cfg = Config()
-    cfg.extractor.extractor_type = "hybrid"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    cfg.extractor.extractor_type = "hybrid_vit"
+    with pytest.raises(ValueError, match="Unknown extractor type"):
         Pipeline(cfg, device="cpu").run(tmp_path, tmp_path / "out", tmp_path / "db.db")
+    assert not (tmp_path / "db.db").exists()

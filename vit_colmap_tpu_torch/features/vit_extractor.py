@@ -20,6 +20,11 @@ reference's cv2 path does.
 the port's trainer run with ``--train-backbone`` (its fine-tuned backbone;
 a heads-only directory raises).
 
+``set_pca`` installs a projection; ``device_extract_pipelined`` (the device
+rate: back-to-back extractions of one staged batch, one synchronization)
+and ``device_extract_looped`` (a device-side checksum over perturbed
+inputs) time the device path without host readback.
+
 Not ported yet (raises): the reference's native JPEG decoder (full-range
 I420 straight from libjpeg).
 """
@@ -27,6 +32,7 @@ I420 straight from libjpeg).
 from __future__ import annotations
 
 import logging
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -70,6 +76,39 @@ def compact_valid_rows(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     order, so device rows line up with the database's keypoint rows."""
     order = torch.argsort((~valid).to(torch.int32), dim=1, stable=True)
     return torch.gather(desc, 1, order[..., None].expand_as(desc))
+
+
+def load_backbone_weights(model: torch.nn.Module, weights_path: Optional[str],
+                          extractor: str) -> None:
+    """Load a frozen extractor's DINOv2 weights into ``model``: a checkpoint
+    directory of the trainer's --train-backbone run (its fine-tuned
+    backbone; a heads-only directory raises) or a torch ``.pth``; with no
+    path the random init stays."""
+    if weights_path and Path(weights_path).is_dir():
+        from vit_colmap_tpu_torch.training.checkpoint import load_checkpoint
+
+        ckpt = load_checkpoint(weights_path)
+        if "backbone" not in ckpt:
+            raise ValueError(
+                f"{weights_path} holds no backbone params (heads-only "
+                f"checkpoint?); the frozen {extractor} needs a "
+                "--train-backbone checkpoint or a torch .pth file"
+            )
+        model.load_state_dict(ckpt["backbone"])
+        logger.info("Loaded fine-tuned backbone from %s", weights_path)
+    elif weights_path:
+        from vit_colmap_tpu_torch.models.convert import load_torch_checkpoint
+
+        logger.info("Loading backbone weights from %s", weights_path)
+        missing, unexpected = model.load_state_dict(
+            load_torch_checkpoint(str(weights_path)), strict=False
+        )
+        if missing:
+            raise ValueError(f"{weights_path} lacks backbone keys {missing}")
+        if unexpected:  # e.g. the public checkpoints' mask_token
+            logger.warning("Ignoring checkpoint keys %s", unexpected)
+    else:
+        logger.warning("No weights provided; DINOv2 backbone is randomly initialized")
 
 
 class ViTExtractor(BaseExtractor):
@@ -119,41 +158,19 @@ class ViTExtractor(BaseExtractor):
             backbone, dtype=dtype, attn_impl=attn_impl, quantize=quantize,
             generator=generator,
         )
-        if weights_path and Path(weights_path).is_dir():
-            # A checkpoint directory of the trainer's --train-backbone run:
-            # the fine-tuned backbone drives the frozen extraction path.
-            from vit_colmap_tpu_torch.training.checkpoint import load_checkpoint
-
-            ckpt = load_checkpoint(weights_path)
-            if "backbone" not in ckpt:
-                raise ValueError(
-                    f"{weights_path} holds no backbone params (heads-only "
-                    "checkpoint?); the frozen ViTExtractor needs a "
-                    "--train-backbone checkpoint or a torch .pth file"
-                )
-            self.model.load_state_dict(ckpt["backbone"])
-            logger.info("Loaded fine-tuned backbone from %s", weights_path)
-        elif weights_path:
-            from vit_colmap_tpu_torch.models.convert import load_torch_checkpoint
-
-            logger.info("Loading backbone weights from %s", weights_path)
-            missing, unexpected = self.model.load_state_dict(
-                load_torch_checkpoint(str(weights_path)), strict=False
-            )
-            if missing:
-                raise ValueError(f"{weights_path} lacks backbone keys {missing}")
-            if unexpected:  # e.g. the public checkpoints' mask_token
-                logger.warning("Ignoring checkpoint keys %s", unexpected)
-        else:
-            logger.warning(
-                "No weights provided; DINOv2 backbone is randomly initialized"
-            )
+        load_backbone_weights(self.model, weights_path, "ViTExtractor")
         self.model.to(self.device).eval().requires_grad_(False)
         self._pca: Optional[tuple[torch.Tensor, torch.Tensor]] = None
         if pca_path is not None and Path(pca_path).exists():
             self._pca = load_pca(pca_path, self.device)
             logger.info("Loaded persisted PCA from %s", pca_path)
         self.device_cache: dict[str, tuple[torch.Tensor, int]] = {}
+
+    def set_pca(self, components, mean) -> None:
+        """Install a shared PCA projection (e.g. fitted by another extractor)
+        on the extractor's device."""
+        self._pca = (torch.as_tensor(np.array(components, np.float32)).to(self.device),
+                     torch.as_tensor(np.array(mean, np.float32)).to(self.device))
 
     # -------------------------------------------------------------- device
     def to_wire(self, images_u8: np.ndarray) -> np.ndarray:
@@ -217,6 +234,49 @@ class ViTExtractor(BaseExtractor):
             logger.info("Fitted PCA %d->%d on %d tokens", fmap.shape[-1],
                         self.descriptor_dim, flat.shape[0])
         return self._detect(fmap, *self._pca)
+
+    def _require_pca(self) -> None:
+        if self._pca is None:
+            raise RuntimeError("fit PCA before benchmarking (extract once)")
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def device_extract_looped(self, staged, reps: int) -> torch.Tensor:
+        """Run the extraction ``reps`` times on the device, iteration i on
+        ``staged`` + i (uint8 wraparound, so no two iterations see the same
+        input), and return the checksum sum(scores) + sum(descriptor bytes)
+        over all iterations as one device scalar; nothing is read back.
+        ``staged`` is a batch already in ``transfer_format`` (``to_wire``)."""
+        self._require_pca()
+        staged = torch.as_tensor(staged).to(self.device)
+        acc = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(reps):
+            _, sc, _valid, desc = self.extract_batch_async(staged + i % 256, packed=True)[:4]
+            acc = (acc + sc.sum(dtype=torch.float32)
+                   + desc.sum(dtype=torch.int32).to(torch.float32))
+        return acc
+
+    @torch.no_grad()
+    def device_extract_pipelined(self, staged, reps: int) -> float:
+        """Wall seconds of ``reps`` back-to-back extractions of ``staged`` (a
+        batch in ``transfer_format``) with no readback between them: one
+        warm call outside the timing, then the calls, then one
+        synchronization on the last output."""
+        self._require_pca()
+        staged = torch.as_tensor(staged).to(self.device)
+        self.extract_batch_async(staged, packed=True)[1].cpu()
+        self._sync()
+        t0 = time.perf_counter()
+        out = None
+        for _ in range(reps):
+            out = self.extract_batch_async(staged, packed=True)
+        if out is not None:
+            out[1].cpu()
+        self._sync()
+        return time.perf_counter() - t0
 
     def extract_batch(self, images_u8: np.ndarray):
         """(B, H, W, 3) uint8 RGB (H, W multiples of 14) -> numpy

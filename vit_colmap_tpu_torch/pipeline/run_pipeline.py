@@ -9,8 +9,9 @@ exports the metrics, with the same flags and the same per-stage report.
 The stages report into ``utils/profiling.GLOBAL_TIMER``, whose table is
 logged after each run; ``--profile-dir`` (``VIT_COLMAP_PROFILE_DIR``)
 writes a ``torch.profiler`` trace of the run.  Extractors: ``vit``,
-``trainable_vit``, ``sift`` (and its alias ``colmap_sift``) and ``dummy``;
-``hybrid`` is not ported yet.
+``trainable_vit``, ``sift`` (and its alias ``colmap_sift``), ``hybrid``
+(OpenCV's SIFT detector, ``ops/cv_detectors.py``, with ViT descriptors) and
+``dummy``; any other name raises ``ValueError`` before a stage runs.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from vit_colmap_tpu_torch.utils.profiling import GLOBAL_TIMER, trace
 
 logger = logging.getLogger(__name__)
 
-PORTED_EXTRACTORS = ("vit", "trainable_vit", "sift", "colmap_sift", "dummy")
+PORTED_EXTRACTORS = ("vit", "trainable_vit", "sift", "colmap_sift", "dummy", "hybrid")
 # Extractors whose descriptors are stored with the signed uint8 encoding.
 SIGNED_DESCRIPTORS = ("vit", "trainable_vit", "hybrid")
 
@@ -43,13 +44,11 @@ class Pipeline:
         self._extractors: dict[tuple, object] = {}
         self.reconstructions: dict = {}
 
-    def _check_ported(self) -> None:
-        c = self.config
-        if c.extractor.extractor_type not in PORTED_EXTRACTORS:
-            raise NotImplementedError(
-                f"extractor {c.extractor.extractor_type!r} is not ported yet "
-                f"(only {', '.join(map(repr, PORTED_EXTRACTORS))}); see ROADMAP.md"
-            )
+    def _check_extractor(self) -> None:
+        etype = self.config.extractor.extractor_type
+        if etype not in PORTED_EXTRACTORS:
+            raise ValueError(f"Unknown extractor type: {etype!r} "
+                             f"(one of {', '.join(map(repr, PORTED_EXTRACTORS))})")
 
     def _make_extractor(self):
         ecfg = self.config.extractor
@@ -65,6 +64,17 @@ class Pipeline:
 
             self._extractors[key] = SiftExtractor(max_keypoints=ecfg.max_keypoints,
                                                   device=self.device)
+        elif ecfg.extractor_type == "hybrid":
+            from vit_colmap_tpu_torch.features.hybrid_extractor import HybridExtractor
+
+            self._extractors[key] = HybridExtractor(
+                weights_path=ecfg.vit_weights_path,
+                backbone=ecfg.backbone,
+                max_keypoints=ecfg.max_keypoints,
+                image_batch=ecfg.image_batch,
+                pca_path=ecfg.pca_path,
+                device=self.device,
+            )
         elif ecfg.extractor_type == "trainable_vit":
             from vit_colmap_tpu_torch.features.trainable_vit_extractor import (
                 TrainableViTExtractor,
@@ -106,7 +116,7 @@ class Pipeline:
         scene: Optional[str] = None,
         results_dir: Optional[Path] = None,
     ) -> Optional[dict]:
-        self._check_ported()
+        self._check_extractor()
         image_dir, output_dir, db_path = Path(image_dir), Path(output_dir), Path(db_path)
         output_dir.mkdir(parents=True, exist_ok=True)
         db_path.parent.mkdir(parents=True, exist_ok=True)

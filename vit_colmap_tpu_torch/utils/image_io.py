@@ -14,7 +14,10 @@ the standard library (``zlib``) and numpy only:
 ``imread_gray`` takes the place of ``cv2.imread(..., cv2.IMREAD_GRAYSCALE)``
 with OpenCV's two conversions: a colour PNG goes through libpng's
 ``png_set_rgb_to_gray`` (BT.601 weights in 15-bit fixed point, truncated), a
-PPM through ``cvtColor`` (14-bit fixed point, rounded).
+PPM through the decoder's 14-bit fixed point, rounded.  ``rgb_to_gray`` is
+``cv2.cvtColor(COLOR_BGR2GRAY)`` on decoded pixels (``cv2.imread`` in
+colour, then the conversion): 15-bit fixed point, rounded, which differs
+from either ``IMREAD_GRAYSCALE`` conversion by up to 1.
 
 ``resize_area`` is ``INTER_AREA``: when neither axis grows, each output
 pixel is the area-weighted mean of the input pixels its footprint overlaps,
@@ -74,7 +77,7 @@ def imread_gray(path) -> np.ndarray:
         img = decode_pnm(data)
         if img.shape[-1] == 1:
             return np.ascontiguousarray(img[..., 0])
-        # cvtColor's RGB -> gray: 14-bit fixed point, rounded.
+        # The PxM decoder's RGB -> gray: 14-bit fixed point, rounded.
         rgb = img.astype(np.uint32)
         return ((4899 * rgb[..., 0] + 9617 * rgb[..., 1] + 1868 * rgb[..., 2] + 8192)
                 >> 14).astype(np.uint8)
@@ -83,6 +86,16 @@ def imread_gray(path) -> np.ndarray:
             f"{path}: JPEG decoding is not ported yet (PNG and PPM/PGM only)"
         )
     raise NotImplementedError(f"{path}: unsupported image format")
+
+
+def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 RGB -> (...) uint8 gray, as ``cv2.cvtColor(bgr,
+    cv2.COLOR_BGR2GRAY)`` of the same pixels: BT.601 weights in 15-bit fixed
+    point (9798, 19235, 3735), rounded.  ``imread_gray``'s PPM branch is
+    the image decoder's own 14-bit conversion, which differs by up to 1."""
+    c = np.asarray(rgb).astype(np.uint32)
+    return ((9798 * c[..., 0] + 19235 * c[..., 1] + 3735 * c[..., 2] + 16384)
+            >> 15).astype(np.uint8)
 
 
 def decode_png(data: bytes) -> np.ndarray:
