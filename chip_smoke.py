@@ -8,7 +8,9 @@ Phases, one flushed line each with elapsed seconds:
 1. device: the card's name, power limit and maximum SM clock (nvidia-smi)
    and torch's name;
 2. build: the port's CUDA kernels from the sources here, one nvcc per source,
-   all started together, then one link; the attention kernels' SASS
+   all started together, then one link, and the host C++ libraries (the
+   database writer and the image decoder), one g++ each, started together;
+   the attention kernels' SASS
    (``cuobjdump -sass`` of the built library) is counted, and the bf16 body
    must multiply on the tensor cores (HGMMA) and load by TMA (UTMALDG); the
    fp32 matcher body's registers and spills (``-Xptxas -v``, no spill
@@ -74,8 +76,10 @@ Phases, one flushed line each with elapsed seconds:
    keypoints of octaves >= 1 that must miss a bar; then the YUV420 wire:
    both unpackers on the card against the CPU, a
    ``ViTExtractor(transfer_format="yuv420c4")`` extraction of the main
-   path's 8 images into a database (kernel 1), its tokens against the rgb
-   extractor's (cosine per token) and the two extractions' warm seconds;
+   path's 8 images into a database (kernel 1) on the studio-range host
+   route (no native decoder for its first ``extract``: no native decode,
+   full range off), its tokens against the rgb extractor's (cosine per
+   token) and the two extractions' warm seconds;
    then the trainable ViT and the backbone remainder: ``Pipeline.run
    (extractor_type="trainable_vit")`` on the 8 images from a
    reference-layout ``.pt`` written here (BatchNorm heads with randomized
@@ -106,7 +110,22 @@ Phases, one flushed line each with elapsed seconds:
    True, False], one extractor built, kernel 1 96 times on the first job
    and 48 on the warm second); device loops: ``device_extract_pipelined``
    on the 8 staged images (the device rate) and ``device_extract_looped``'s
-   checksum against separate calls;
+   checksum against separate calls; native-io: the host C++ libraries
+   (both must load; the sonames ldd resolves; the JPEG codec is libjpeg or,
+   without it, nvJPEG), the 8 PNGs through ``Pipeline.run`` with
+   yuv420c4 twice on one extractor (the native route: 8 I420 decodes in
+   C++, kernel 1 96 times; then the warm host route at full range: no
+   native decode, 48 times; kernel 2 once and the native database writer
+   each time), its tokens against the plain path, the decoder's I420
+   against ``pack_yuv420_full`` of the same pixels, decode + pack and the
+   extract stage native against the numpy route in turns, the 8 images
+   written as JPEG (quality 95) through ``Pipeline.run`` with rgb and with
+   yuv420c4 (registered images, verified pairs and matches beside the PNG
+   run; the codec within a mean absolute error of 8 of the pixels it
+   encoded), scene-50's database through ``match_exhaustive`` with the
+   native writer and with ``ColmapDatabase`` in turns (equal rows; match
+   and verify seconds, and the seconds spent in the writer), and the JPEG
+   decode rate on 1, 2 and 8 threads;
 6. times: CUDA-event medians of each kernel, its plain version and one
    PyTorch library call computing the same function (kernels 1 and 3 also
    in f32), each kernel's mean over calls run back to back beside its
@@ -136,8 +155,8 @@ Phases, one flushed line each with elapsed seconds:
 
 Every path (the main one, each of 5a-5d, calibrated verification, the
 mapper, SIFT, the 50-view scene, the wire, the trainable path, vitg14,
-registers, int8, the hybrid, each serve job, the device loops and the train
-path's Pipeline.run) is driven with the kernels'
+registers, int8, the hybrid, each serve job, the device loops, each
+native-io run and the train path's Pipeline.run) is driven with the kernels'
 launch counts set to 0 just before it and read just after; each kernel
 must have launched on its path, and the kernels it replaces must not have
 (verification, the mapper and SIFT launch none of the five).
@@ -145,7 +164,7 @@ must have launched on its path, and the kernels it replaces must not have
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Any failed
 check raises, and the script exits non-zero without that line.  It needs
-one CUDA GPU and ``nvcc``; without CUDA, or outside a checkout of the
+one CUDA GPU, ``nvcc`` and ``g++``; without CUDA, or outside a checkout of the
 repository, it exits with status 2 before printing any result.
 """
 
@@ -653,7 +672,7 @@ def device_phase():
 
 
 def build_phase():
-    from vit_colmap_tpu_torch.kernels import build
+    from vit_colmap_tpu_torch.kernels import build, host_build
 
     # Always one fresh build (the library is otherwise cached under a hash
     # of the sources, flags and nvcc), which library() then loads.
@@ -664,7 +683,12 @@ def build_phase():
     sources = sorted(p.name for p in build.CSRC_DIR.glob("*.cu"))
     log(f"build: {', '.join(sources)} (5 kernels), one nvcc per source in "
         f"parallel and one link, {seconds:.1f} s")
-    return seconds
+    # The host C++ libraries (database writer, image decoder), one g++ each
+    # started together, also built fresh.
+    host = host_build.build_all(force=True)
+    log(f"build: host libraries with g++ in parallel, seconds {host}, JPEG codec "
+        f"{host_build.jpeg_codec()}")
+    return seconds, host
 
 
 # SASS opcodes counted in the attention kernels and in the fp32 matcher
@@ -1253,6 +1277,7 @@ def pair_matcher_widths() -> None:
 
 def slice_phase(work: Path):
     """The main path through Pipeline.run, counts reset just before."""
+    from vit_colmap_tpu_torch.database.native import writers
     from vit_colmap_tpu_torch.kernels import launches as counts
     from vit_colmap_tpu_torch.pipeline import Pipeline
     from vit_colmap_tpu_torch.utils.config import Config
@@ -1277,12 +1302,16 @@ def slice_phase(work: Path):
 
     sync()
     counts.clear()
+    writers.clear()
     t = time.perf_counter()
     report = pipeline.run(img_dir, work / "out", work / "run1.db")
     sync()
     wall = time.perf_counter() - t
     launches = dict(counts)
-    log(f"slice: Pipeline.run in {wall:.1f} s, report {report}, launches {launches}")
+    log(f"slice: Pipeline.run in {wall:.1f} s, report {report}, launches {launches}, "
+        f"database writers {dict(writers)}")
+    check(writers == {"native": 1}, f"slice: bulk writes through {dict(writers)}, not the "
+          "native writer")
     # No quality bar here: the 8 images are horizontal shifts of one random
     # texture seen by a random backbone (the mapper phase holds the mapper
     # to the ground truth).
@@ -2520,18 +2549,26 @@ def wire_phase(work: Path, rgb_extractor, weights: Path) -> dict:
     main path's 8 images; ViTExtractor(transfer_format="yuv420c4")
     extraction of them into a database (counts cleared: kernel 1 launches,
     as on the main path's first run), its dense tokens against the rgb
-    extractor's (cosine per token), and both extractions' warm seconds."""
+    extractor's (cosine per token), and both extractions' warm seconds.
+    The extractor keeps the studio-range host route (the route where the
+    decoder does not load): its first ``extract`` sees no native decoder,
+    so no image is decoded natively and full range stays off; the native
+    route is the native-io phase's."""
+    from unittest import mock
+
     import numpy as np
     import torch
 
     from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
     from vit_colmap_tpu_torch.kernels import launches as counts
     from vit_colmap_tpu_torch.ops import transfer
+    from vit_colmap_tpu_torch.utils import native_io
     from vit_colmap_tpu_torch.utils.config import CameraConfig
     from vit_colmap_tpu_torch.utils.image_io import imread_rgb
 
     img_dir = work / "images"
     rgb = np.stack([imread_rgb(f) for f in sorted(img_dir.iterdir())])
+    native_io.decodes.clear()
     t = time.perf_counter()
     transfer.pack_batch_yuv420_c4(rgb)
     pack_s = time.perf_counter() - t  # the host's share of the wire
@@ -2549,7 +2586,8 @@ def wire_phase(work: Path, rgb_extractor, weights: Path) -> dict:
                        transfer_format="yuv420c4", device=DEVICE)
     sync()
     counts.clear()
-    yuv.extract(img_dir, work / "wire.db", CameraConfig().model)
+    with mock.patch.object(native_io, "load_native", lambda: None):
+        yuv.extract(img_dir, work / "wire.db", CameraConfig().model)
     sync()
     launches = dict(counts)
     expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS}, "wire")
@@ -2568,6 +2606,9 @@ def wire_phase(work: Path, rgb_extractor, weights: Path) -> dict:
         ex.extract(img_dir, work / f"wire_{name}.db", CameraConfig().model)
         sync()
         seconds[name] = time.perf_counter() - t
+    check(not native_io.decodes and not yuv._yuv_full_range,
+          f"wire: the studio-range route decoded natively ({dict(native_io.decodes)}) or "
+          f"set full range ({yuv._yuv_full_range})")
     rates = {k: NUM_IMAGES / v for k, v in seconds.items()}
     log(f"wire: unpack card vs CPU max abs err {errs} (bound {WIRE_UNPACK_TOL}); "
         f"yuv420c4 extraction launches {launches}; tokens vs rgb cosine mean "
@@ -3699,6 +3740,298 @@ def device_loops_phase(work: Path, extractor) -> dict:
             "launches": launches}
 
 
+# The native-io phase: host C++ decode and database writes.
+NATIVE_JPEG_QUALITY = 95
+NATIVE_JPEG_ERR = 8.0  # mean |decoded - source| of a JPEG it wrote (the JAX test's bound)
+NATIVE_TURNS = 2  # native and host extractions, in turns
+NATIVE_DECODE_THREADS = (1, 2, 8)
+NATIVE_DECODE_REPS = 3
+
+
+def ldd_sonames(path: Path) -> list[str]:
+    """The shared libraries ``ldd`` resolves for ``path``, as "soname =>
+    file"; unresolved ones say "not found"."""
+    out = subprocess.run(["ldd", str(path)], capture_output=True, text=True).stdout
+    return [line.strip().split(" (0x")[0] for line in out.splitlines() if "=>" in line]
+
+
+def db_summary(db_path: Path, report: dict) -> dict:
+    from vit_colmap_tpu_torch.database import ColmapDatabase
+
+    with ColmapDatabase.open_database(db_path) as db:
+        return {"images": db.num_images, "verified_pairs": db.num_verified_pairs,
+                "matches": db.num_matches,
+                "registered": report.get("registered_images", 0)}
+
+
+def table_rows(db_path: Path, table: str) -> list:
+    import sqlite3
+
+    con = sqlite3.connect(db_path)
+    try:
+        return con.execute(f"SELECT * FROM {table} ORDER BY 1").fetchall()
+    finally:
+        con.close()
+
+
+def native_io_phase(work: Path, weights: Path) -> dict:
+    """The host C++ libraries on the main path: (a) both load, with the
+    sonames ldd resolves; (b) the 8 PNGs through ``Pipeline.run`` with
+    yuv420c4 twice on one extractor, the first on the native route (8 I420
+    decodes, kernel 1 96 times) and the second on the host route at full
+    range (none, 48), kernel 2 once and the native writer each time; tokens
+    against the plain path; the decoder's I420 against ``pack_yuv420_full``
+    of the same pixels (no resize at this size); decode + pack and the
+    extract stage native against the numpy route, in turns; (c) the 8
+    images written as JPEG (quality 95) through ``Pipeline.run`` with rgb
+    and with yuv420c4 beside the PNG run, and the codec against the pixels
+    it encoded; (d) scene-50's database through ``match_exhaustive`` with
+    the native writer and with ColmapDatabase in turns: equal rows; (e)
+    JPEG decode rates on 1, 2 and 8 threads.  The mapper logs each image
+    it could not register with its PnP inliers."""
+    import contextlib
+    import shutil
+    import sqlite3
+    import types
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from vit_colmap_tpu_torch.database import native as db_native
+    from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
+    from vit_colmap_tpu_torch.kernels import attention, host_build
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.ops import transfer
+    from vit_colmap_tpu_torch.pipeline import Pipeline
+    from vit_colmap_tpu_torch.pipeline import match as match_module
+    from vit_colmap_tpu_torch.pipeline.match import match_exhaustive
+    from vit_colmap_tpu_torch.utils import native_io
+    from vit_colmap_tpu_torch.utils.config import CameraConfig, MatchingConfig
+    from vit_colmap_tpu_torch.utils.image_io import imread_rgb, write_jpeg
+
+    # (a) The libraries: neither may be missing on the card.
+    libs = {"image_io": native_io.load_native(), "db_writer": db_native.load_native()}
+    check(all(lib is not None for lib in libs.values()),
+          f"native-io: host library unavailable: {libs}")
+    sonames = {name: ldd_sonames(host_build.library_path(name)) for name in libs}
+    codec = host_build.jpeg_codec()
+    log(f"native-io: libraries load, JPEG codec {codec}, ldd {sonames}")
+    check(not any("not found" in s for v in sonames.values() for s in v),
+          f"native-io: unresolved libraries {sonames}")
+
+    def counted_run(pipeline, image_dir: Path, tag: str):
+        sync()
+        counts.clear()
+        native_io.decodes.clear()
+        db_native.writers.clear()
+        t = time.perf_counter()
+        report = pipeline.run(image_dir, work / f"{tag}_out", work / f"{tag}.db")
+        sync()
+        run = {"wall_s": time.perf_counter() - t, "report": report,
+               "launches": dict(counts), "decodes": dict(native_io.decodes),
+               "writers": dict(db_native.writers)}
+        run["database"] = db_summary(work / f"{tag}.db", report)
+        log(f"native-io: {tag}: Pipeline.run in {run['wall_s']:.2f} s, report {report}, "
+            f"launches {run['launches']}, decodes {run['decodes']}, writers "
+            f"{run['writers']}, database {run['database']}")
+        check(run["writers"] == {"native": 1}, f"native-io: {tag} wrote through "
+              f"{run['writers']}, not the native writer")
+        return run
+
+    def yuv_config(fmt: str):
+        config = hybrid_config(weights, extractor="vit")
+        config.extractor.transfer_format = fmt
+        return config
+
+    # (b) The 8 PNGs, native route then host route at full range.
+    img_dir = work / "images"
+    pngs = sorted(img_dir.iterdir())
+    pipeline = Pipeline(yuv_config("yuv420c4"), device=DEVICE)
+    png_runs = [counted_run(pipeline, img_dir, f"native_png_{k}") for k in range(2)]
+    expect_launches(png_runs[0]["launches"], {"attention_qkv": BACKBONE_LAYERS,
+                                              "match_topk2_colmax": MATCH_BATCHES},
+                    "native-io png run 1")
+    expect_launches(png_runs[1]["launches"], {"attention_qkv": BACKBONE_LAYERS // 2,
+                                              "match_topk2_colmax": MATCH_BATCHES},
+                    "native-io png run 2")
+    check(png_runs[0]["decodes"] == {"i420": NUM_IMAGES},
+          f"native-io: the first run took the host route: decodes {png_runs[0]['decodes']}")
+    check(png_runs[1]["decodes"] == {},
+          f"native-io: the warm run decoded natively: {png_runs[1]['decodes']}")
+    extractor = next(iter(pipeline._extractors.values()))
+    check(extractor._yuv_full_range, "native-io: full range not set by the native route")
+    check_tokens(types.SimpleNamespace(
+        dense_features=lambda x: extractor.dense_features(extractor.to_wire(x))),
+        img_dir, "attention_qkv", attention.attention_qkv_plain, {}, "native-io")
+
+    rgb = np.stack([imread_rgb(f) for f in pngs])
+    packed, ok = native_io.decode_batch_i420(pngs, WIDTH, HEIGHT)
+    ref = np.stack([transfer.pack_yuv420_full(im) for im in rgb])
+    n_y = HEIGHT * WIDTH
+    diff = packed.reshape(NUM_IMAGES, -1).astype(np.int16) - ref.reshape(NUM_IMAGES, -1)
+    i420_diff = {"luma_bytes": int(np.count_nonzero(diff[:, :n_y])),
+                 "chroma_bytes": int(np.count_nonzero(diff[:, n_y:])),
+                 "chroma_max": int(np.abs(diff[:, n_y:]).max()),
+                 "chroma_of": int(diff[:, n_y:].size)}
+    log(f"native-io: I420 of the 8 PNGs against pack_yuv420_full: {i420_diff} (luma "
+        "must be equal; chroma is the mean of rounded samples against the rounded "
+        "mean, within 1)")
+    check(bool(ok.all()) and i420_diff["luma_bytes"] == 0 and i420_diff["chroma_max"] <= 1,
+          f"native-io: I420 against pack_yuv420_full: {i420_diff}")
+
+    def native_pack():
+        return transfer.i420_to_c4(native_io.decode_batch_i420(pngs, WIDTH, HEIGHT)[0])
+
+    def numpy_pack():
+        return transfer.pack_batch_yuv420_c4(
+            np.stack([imread_rgb(f) for f in pngs]), full_range=True)
+
+    pack_s = {"native": [], "numpy": []}
+    for name in ("native", "numpy", "numpy", "native"):
+        t = time.perf_counter()
+        (native_pack if name == "native" else numpy_pack)()
+        pack_s[name].append(time.perf_counter() - t)
+    extract_s = {"native": [], "host": []}
+    for k in range(NATIVE_TURNS):
+        ex = ViTExtractor(weights_path=str(weights), backbone="vitb14",
+                          max_keypoints=MAX_KEYPOINTS, image_batch=IMAGE_BATCH,
+                          pca_path=str(work / "slice_pca.npz"),
+                          transfer_format="yuv420c4", device=DEVICE)
+        for route in ("native", "host"):
+            native_io.decodes.clear()
+            sync()
+            t = time.perf_counter()
+            ex.extract(img_dir, work / f"native_turn_{k}_{route}.db", CameraConfig().model)
+            sync()
+            extract_s[route].append(time.perf_counter() - t)
+            check((native_io.decodes.get("i420", 0) == NUM_IMAGES) == (route == "native"),
+                  f"native-io: turn {k} {route} decodes {dict(native_io.decodes)}")
+    log(f"native-io: decode + yuv420c4 pack of the 8 PNGs, seconds in turns {pack_s}; "
+        f"extract stage (PCA loaded) seconds in turns {extract_s}; Pipeline.run extract "
+        f"stage: native route (PCA fit) {png_runs[0]['report']['extract_s']} s, host "
+        f"route {png_runs[1]['report']['extract_s']} s")
+
+    # (c) The same images as JPEG, with both wire formats; the codec against
+    # the pixels it encoded.
+    jpg_dir = work / "native_jpeg"
+    jpg_dir.mkdir()
+    for f, im in zip(pngs, rgb):
+        write_jpeg(jpg_dir / f"{f.stem}.jpg", im, quality=NATIVE_JPEG_QUALITY)
+    jpgs = sorted(jpg_dir.iterdir())
+    packed, ok = native_io.decode_batch_i420(jpgs, WIDTH, HEIGHT)
+    check(bool(ok.all()), f"native-io: JPEG decode failed: {ok}")
+    unpacked = transfer.unpack_yuv420(torch.from_numpy(packed).to(DEVICE), full_range=True)
+    jpeg_err = {
+        "i420": float((unpacked.cpu() - torch.from_numpy(rgb).float()).abs().mean()),
+        "rgb": float(np.mean([np.abs(imread_rgb(j).astype(np.float32) - im).mean()
+                              for j, im in zip(jpgs, rgb)])),
+    }
+    log(f"native-io: {NUM_IMAGES} JPEGs (quality {NATIVE_JPEG_QUALITY}, {codec}) decoded "
+        f"against their source pixels, mean abs {jpeg_err} (bound {NATIVE_JPEG_ERR})")
+    check(max(jpeg_err.values()) < NATIVE_JPEG_ERR, f"native-io: JPEG error {jpeg_err}")
+    jpeg_runs = {}
+    for fmt, decodes in (("rgb", {"rgb": NUM_IMAGES}),
+                         ("yuv420c4", {"i420": NUM_IMAGES, "rgb": NUM_IMAGES})):
+        run = counted_run(Pipeline(yuv_config(fmt), device=DEVICE), jpg_dir,
+                          f"native_jpeg_{fmt}")
+        expect_launches(run["launches"], {"attention_qkv": BACKBONE_LAYERS,
+                                          "match_topk2_colmax": MATCH_BATCHES},
+                        f"native-io jpeg {fmt}")
+        check(run["decodes"] == decodes,
+              f"native-io: jpeg {fmt} decodes {run['decodes']}, expected {decodes}")
+        check(run["database"]["images"] == NUM_IMAGES,
+              f"native-io: jpeg {fmt} database {run['database']}")
+        jpeg_runs[fmt] = run
+    log(f"native-io: JPEG runs beside the PNG run: png {png_runs[0]['database']}, "
+        f"jpeg rgb {jpeg_runs['rgb']['database']}, jpeg yuv420c4 "
+        f"{jpeg_runs['yuv420c4']['database']}")
+
+    # (d) Scene-50's 1,225 pairs through either writer, in turns; the
+    # seconds spent in the writer (opening it, every insert, the commits
+    # and closing it) are summed by a proxy around the one the matcher opens.
+    class TimedWriter:
+        def __init__(self, writer, seconds: list):
+            self._writer, self._seconds = writer, seconds
+
+        def __getattr__(self, name):
+            fn = getattr(self._writer, name)
+
+            def timed(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self._seconds[0] += time.perf_counter() - t
+            return timed
+
+    def timed_open(db_path, seconds: list):
+        t = time.perf_counter()
+        writer = db_native.open_bulk_writer(db_path)
+        seconds[0] += time.perf_counter() - t
+        return TimedWriter(writer, seconds)
+
+    config = MatchingConfig()
+    pairs = SCENE_VIEWS * (SCENE_VIEWS - 1) // 2
+    writer_s, rows, scene_launches = {"native": [], "python": []}, {}, {}
+    for writer in ("native", "python", "python", "native"):
+        db = work / f"native_scene_{writer}.db"
+        shutil.copy(work / "scene_sift.db", db)
+        with contextlib.closing(sqlite3.connect(db)) as con:
+            for table in ("matches", "two_view_geometries"):
+                con.execute(f"DELETE FROM {table}")
+            con.commit()
+        fallback = (mock.patch.object(db_native, "load_native", lambda: None)
+                    if writer == "python" else contextlib.nullcontext())
+        sync()
+        counts.clear()
+        db_native.writers.clear()
+        write_s = [0.0]
+        with fallback, mock.patch.object(match_module, "open_bulk_writer",
+                                         lambda p: timed_open(p, write_s)):
+            stats = match_exhaustive(db, config, device=DEVICE)
+        sync()
+        scene_launches = dict(counts)
+        check(db_native.writers == {writer: 1},
+              f"native-io: scene-50 {writer} run wrote through {dict(db_native.writers)}")
+        expect_launches(scene_launches, {"match_topk2_colmax":
+                                         math.ceil(pairs / config.pair_batch)},
+                        f"native-io scene-50 {writer}")
+        writer_s[writer].append({"match_s": stats.match_seconds,
+                                 "verify_s": stats.verify_seconds, "write_s": write_s[0]})
+        got = [table_rows(db, t) for t in ("matches", "two_view_geometries")]
+        check(rows.setdefault(writer, got) == got, f"native-io: scene-50 {writer} rows "
+              "differ between its two runs")
+    same = rows["native"] == rows["python"]
+    log(f"native-io: scene-50 {pairs} pairs, match / verify / write seconds by writer in turns "
+        f"{writer_s}; {len(rows['native'][0])} match rows, {len(rows['native'][1])} "
+        f"geometry rows, equal across writers: {same}")
+    check(same and len(rows["native"][0]) > 0, "native-io: scene-50 rows differ by writer")
+
+    # (e) JPEG decode rates.
+    ms_per_image = {}
+    for n in NATIVE_DECODE_THREADS:
+        ts = []
+        for _ in range(NATIVE_DECODE_REPS):
+            t = time.perf_counter()
+            native_io.decode_batch_i420(jpgs, WIDTH, HEIGHT, n_threads=n)
+            ts.append(time.perf_counter() - t)
+        ms_per_image[n] = 1e3 * statistics.median(ts) / NUM_IMAGES
+    log(f"native-io: JPEG decode to I420 at {WIDTH}x{HEIGHT} ({codec}), ms per image by "
+        f"threads {ms_per_image}")
+
+    launches = {}
+    for run in (*png_runs, *jpeg_runs.values()):
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"codec": codec, "sonames": sonames, "i420_vs_pack": i420_diff,
+            "pack_s": pack_s, "extract_s": extract_s,
+            "png": [r["database"] for r in png_runs],
+            "jpeg": {k: r["database"] for k, r in jpeg_runs.items()},
+            "jpeg_err": jpeg_err, "writer_s": writer_s, "decode_ms": ms_per_image,
+            "launches": launches, "scene_launches": scene_launches}
+
+
 def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
                 fixedmax_extractor, int8_ops, max_mhz: float, int8_loop: dict):
     import torch
@@ -3937,7 +4270,7 @@ def main() -> int:
     from vit_colmap_tpu_torch.kernels import attention
 
     card, kind, max_mhz = device_phase()
-    build_s = build_phase()
+    build_s, host_build_s = build_phase()
     sass = sass_phase()
 
     errs = {
@@ -3986,6 +4319,7 @@ def main() -> int:
         hybrid = hybrid_phase(work, extractor, work / "vitb14_random.pth")
         serve = serve_phase(work, work / "vitb14_random.pth")
         loops = device_loops_phase(work, extractor)
+        native = native_io_phase(work, work / "vitb14_random.pth")
         times, rates, split, f32_ms, matcher = times_phase(
             pipeline, work, work / "images", inputs_main, fixedmax_extractor, int8_ops,
             max_mhz, sass["match_topk2_int8"]["main_loop_opcodes"])
@@ -4016,6 +4350,7 @@ def main() -> int:
              "registers": registers["launches"], "int8": int8["launches"],
              "train": train["launches"], "hybrid": hybrid["launches"],
              "serve": serve["launches"], "device_loops": loops["launches"],
+             "native_io": native["launches"], "native_io_scene": native["scene_launches"],
              "fixedmax": fixedmax_launches, **{f"paths_{k}": v for k, v in
                                               path_launches.items()}}
     kernels = []
@@ -4035,7 +4370,7 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "launches_by_path": {p: n[name] for p, n in paths.items() if n.get(name)},
         })
-    log(f"done: build {build_s:.1f} s, database {db_counts}, main-path verification "
+    log(f"done: build {build_s:.1f} s, host libraries {host_build_s}, database {db_counts}, main-path verification "
         f"{report['verify_s']} s (chunks {report['verify_chunks']}), calibrated "
         f"verification {verification}, mapper {mapper}, card vs CPU {card_cpu}, "
         f"sift {sift_result}, scene-50 {scene}, wire {wire}, "
@@ -4044,6 +4379,7 @@ def main() -> int:
         f"train card vs CPU {train['card_cpu']}, "
         f"hybrid { {k: v for k, v in hybrid.items() if k != 'launches'} }, serve {serve}, "
         f"device loops {loops}, "
+        f"native-io { {k: v for k, v in native.items() if 'launches' not in k} }, "
         f"rates {rates}, "
         f"int8 rows differing from the float matcher {int8_vs_float}, saliency "
         f"{saliency}, attention bound split {split}, f32 attention ms {f32_ms}, "

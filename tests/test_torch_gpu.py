@@ -881,3 +881,42 @@ def test_hybrid_extractor_on_cuda_matches_cpu(cuda_device, tmp_path):
         np.testing.assert_array_equal(k, rk)
         diff = np.abs(d.astype(int) - rd.astype(int))
         assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+
+
+@pytest.mark.gpu
+def test_host_jpeg_codec_round_trips_on_the_card_machine(cuda_device, tmp_path):
+    """The host image library on the GPU machine (nvJPEG where there is no
+    libjpeg): colour and gray JPEGs it writes read back within the JAX
+    decode test's mean absolute error of 8, through the I420 route
+    (unpacked at full range on the card) and as cv2.imread's pixels; a
+    damaged file fails its slot; the batch decode on the test's card gives
+    the same bytes, and on a card that does not exist (nvJPEG) fails."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.dataloader.synthetic_benchmark import make_structured_image
+    from vit_colmap_tpu_torch.ops.transfer import unpack_yuv420
+    from vit_colmap_tpu_torch.utils import image_io, native_io
+
+    if native_io.load_native() is None:
+        pytest.fail("the host image library does not build on the GPU machine")
+    rgb = make_structured_image(np.random.default_rng(3), 238, 322)
+    image_io.write_jpeg(tmp_path / "c.jpg", rgb)
+    image_io.write_jpeg(tmp_path / "g.jpg", rgb[..., 1])
+    (tmp_path / "bad.jpg").write_bytes(b"\xff\xd8 not a JPEG")
+    paths = [tmp_path / "c.jpg", tmp_path / "g.jpg", tmp_path / "bad.jpg"]
+    packed, ok = native_io.decode_batch_i420(paths, 322, 238, pad_to=4)
+    assert ok.tolist() == [True, True, False, False] and not packed[2:].any()
+    from vit_colmap_tpu_torch.kernels import host_build
+
+    index = torch.device(cuda_device).index or 0
+    on_card, ok_card = native_io.decode_batch_i420(paths, 322, 238, pad_to=4, device=index)
+    assert np.array_equal(on_card, packed) and np.array_equal(ok_card, ok)
+    if host_build.jpeg_codec() == "nvjpeg":  # no such card: every slot fails
+        _, none = native_io.decode_batch_i420(paths[:1], 322, 238,
+                                              device=torch.cuda.device_count())
+        assert not none.any()
+    back = unpack_yuv420(torch.from_numpy(packed[:2]).to(cuda_device), full_range=True).cpu()
+    assert (back[0] - torch.from_numpy(rgb).float()).abs().mean() < 8
+    assert (back[1] - torch.from_numpy(rgb[..., 1:2]).float()).abs().mean() < 8
+    assert np.abs(image_io.imread_rgb(paths[0]).astype(int) - rgb).mean() < 8
+    assert np.abs(image_io.imread_gray(paths[1]).astype(int) - rgb[..., 1]).mean() < 8

@@ -99,10 +99,19 @@ def test_resize_area_grows_as_cv2(size):
     np.testing.assert_array_equal(image_io.resize_area(img, *size), ref)
 
 
-def test_unsupported_formats_raise(tmp_path):
+def test_unsupported_formats_raise(tmp_path, monkeypatch):
     jpg = tmp_path / "x.jpg"
     ok, buf = cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))
     jpg.write_bytes(buf.tobytes())
+    bmp = tmp_path / "x.bmp"
+    ok, buf = cv2.imencode(".bmp", np.zeros((8, 8, 3), np.uint8))
+    bmp.write_bytes(buf.tobytes())
+    with pytest.raises(NotImplementedError):
+        image_io.imread_rgb(bmp)
+    # JPEG decodes through the native host decoder; without it, it raises.
+    from vit_colmap_tpu_torch.utils import native_io
+
+    monkeypatch.setattr(native_io, "load_native", lambda: None)
     with pytest.raises(NotImplementedError):
         image_io.imread_rgb(jpg)
     data = bytearray(_png(np.zeros((4, 4, 3), np.uint8), [0]))

@@ -11,9 +11,9 @@ appended at ``synthetic_ratio``, and a photometric jitter of image 2 with
 probability 0.5.  The numpy ``Generator`` is drawn in the reference's
 order.
 
-Images are read by ``utils.image_io.imread_rgb`` (PPM and PNG; ``.jpg``
-raises) and resized by ``resize_area`` (OpenCV's ``INTER_AREA``, shrinking
-or growing).
+Images are read by ``utils.image_io.imread_rgb`` (PPM, PNG, and JPEG
+through the host C++ decoder, as ``cv2.imread`` reads them) and resized by
+``resize_area`` (OpenCV's ``INTER_AREA``, shrinking or growing).
 """
 
 from __future__ import annotations

@@ -46,6 +46,15 @@ def read_rgb_groups(files: list[Path]) -> dict[tuple[int, int], list[tuple[Path,
     return groups
 
 
+def add_group_camera(db, camera_model: str, camera_params: Optional[list[float]],
+                     width: int, height: int) -> int:
+    """The camera of one image size: ``camera_params`` as a prior, or the
+    model's defaults for the size (f = max(w, h))."""
+    params = camera_params or CameraConfig(model=camera_model).get_default_params(width, height)
+    return db.add_camera(camera_model, width, height, params,
+                         prior_focal_length=camera_params is not None)
+
+
 class BaseExtractor(ABC):
     @abstractmethod
     def extract(
@@ -71,17 +80,23 @@ class BaseExtractor(ABC):
         (keypoints, descriptors) rows."""
         for (oh, ow), items in groups.items():
             th, tw = patch_grid_size(oh, ow)
-            params = camera_params or CameraConfig(model=camera_model).get_default_params(ow, oh)
-            cam_id = db.add_camera(camera_model, ow, oh, params,
-                                   prior_focal_length=camera_params is not None)
+            cam_id = add_group_camera(db, camera_model, camera_params, ow, oh)
             pending = []
             for start in range(0, len(items), self.image_batch):
                 chunk = items[start : start + self.image_batch]
                 batch = np.stack([resize_area(rgb, tw, th) for _, rgb in chunk])
                 pending.append(([f.name for f, _ in chunk], self.extract_batch_async(batch)))
-            for names, outs in pending:
-                rows = self._batch_rows(outs, names, (tw, th), (ow, oh))
-                for name, (kpts, desc) in zip(names, rows):
-                    image_id = db.add_image(name, camera_id=cam_id)
-                    db.add_keypoints(image_id, kpts)
-                    db.add_descriptors(image_id, desc)
+            self._write_batches(db, cam_id, pending, (tw, th), (ow, oh))
+
+    def _write_batches(self, db, cam_id: int, pending, grid_wh, image_wh) -> None:
+        """The rows of each launched batch ``(names, outputs)`` into the
+        database, in order; a name of None is a slot to skip (the rows of
+        the others stay aligned)."""
+        for names, outs in pending:
+            rows = self._batch_rows(outs, names, grid_wh, image_wh)
+            for name, row in zip(names, rows):
+                if name is None:
+                    continue
+                image_id = db.add_image(name, camera_id=cam_id)
+                db.add_keypoints(image_id, row[0])
+                db.add_descriptors(image_id, row[1])

@@ -9,9 +9,19 @@ directory -> COLMAP database contract of ``extract()``.  Descriptors stay on
 the device for matching (``device_cache``).
 
 ``transfer_format`` "yuv420" or "yuv420c4" sends each batch to the card as
-that wire format (``ops/transfer.py``: packed on the host, cv2's studio
-range, and unpacked to RGB on the card before the backbone), as the
-reference's cv2 path does.
+that wire format (``ops/transfer.py``: packed on the host and unpacked to
+RGB on the card before the backbone).  ``extract()`` then takes the native
+route where the host C++ decoder loads (``utils/native_io.py``), with the
+JAX package's rules: it is decided once, when the extractor's first forward
+is built inside ``extract()``; images are grouped by their header sizes
+without a decode; only the PCA-fit subset is decoded to RGB (none when the
+PCA file loads); each batch is decoded and resized straight into I420 on 2
+threads (then ``i420_to_c4`` for yuv420c4), and an image whose decode failed
+is skipped.  The native route's full-range JFIF YCbCr is sticky: from then
+on every host pack and every unpack of the extractor is full range, a warm
+second ``extract()`` included, which takes the host route (decode, area
+resize, pack).  Otherwise the packs are cv2's studio range, as the
+reference's cv2 path.
 
 ``quantize="int8"`` runs the backbone's transformer matmuls through
 ``QuantDense`` (int8 weights and activations, int32 products).
@@ -24,9 +34,6 @@ a heads-only directory raises).
 rate: back-to-back extractions of one staged batch, one synchronization)
 and ``device_extract_looped`` (a device-side checksum over perturbed
 inputs) time the device path without host readback.
-
-Not ported yet (raises): the reference's native JPEG decoder (full-range
-I420 straight from libjpeg).
 """
 
 from __future__ import annotations
@@ -43,12 +50,14 @@ from vit_colmap_tpu_torch.database import ColmapDatabase
 from vit_colmap_tpu_torch.device import resolve_device
 from vit_colmap_tpu_torch.features.base_extractor import (
     BaseExtractor,
+    add_group_camera,
     list_images,
     read_rgb_groups,
 )
 from vit_colmap_tpu_torch.models.dinov2 import (
     PATCH_SIZE,
     make_backbone,
+    patch_grid_size,
     preprocess,
 )
 from vit_colmap_tpu_torch.ops.detect import detect_keypoints, quadratic_refine
@@ -62,11 +71,14 @@ from vit_colmap_tpu_torch.ops.interpolate import (
 )
 from vit_colmap_tpu_torch.ops.scoring import compute_saliency
 from vit_colmap_tpu_torch.ops.transfer import (
+    i420_to_c4,
     pack_batch_yuv420,
     pack_batch_yuv420_c4,
+    pack_yuv420_full,
     unpack_yuv420,
     unpack_yuv420_c4,
 )
+from vit_colmap_tpu_torch.utils.image_io import imread_rgb
 
 logger = logging.getLogger(__name__)
 
@@ -165,6 +177,12 @@ class ViTExtractor(BaseExtractor):
             self._pca = load_pca(pca_path, self.device)
             logger.info("Loaded persisted PCA from %s", pca_path)
         self.device_cache: dict[str, tuple[torch.Tensor, int]] = {}
+        # The JAX package's forward is built at its first use; the native
+        # route is open only to an extractor that has not built it yet.
+        self._forward_built = False
+        # Full-range JFIF YCbCr on the wire, set (for good) by the native
+        # route; otherwise cv2's studio range.
+        self._yuv_full_range = False
 
     def set_pca(self, components, mean) -> None:
         """Install a shared PCA projection (e.g. fitted by another extractor)
@@ -175,11 +193,13 @@ class ViTExtractor(BaseExtractor):
     # -------------------------------------------------------------- device
     def to_wire(self, images_u8: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) uint8 RGB -> the batch in ``transfer_format``, packed
-        on the host."""
+        on the host, at full range once the native route has set it."""
         if self.transfer_format == "yuv420":
+            if self._yuv_full_range:
+                return np.stack([pack_yuv420_full(im) for im in np.asarray(images_u8)])
             return pack_batch_yuv420(np.asarray(images_u8))
         if self.transfer_format == "yuv420c4":
-            return pack_batch_yuv420_c4(np.asarray(images_u8))
+            return pack_batch_yuv420_c4(np.asarray(images_u8), full_range=self._yuv_full_range)
         return images_u8
 
     @torch.no_grad()
@@ -187,11 +207,12 @@ class ViTExtractor(BaseExtractor):
         """A batch in ``transfer_format`` (for "rgb" (B, H, W, 3) uint8; H, W
         multiples of 14) -> (B, gh, gw, C) f32; YUV wires are unpacked to
         RGB on the device first."""
+        self._forward_built = True
         wire = torch.as_tensor(wire).to(self.device)
         if self.transfer_format == "yuv420":
-            wire = unpack_yuv420(wire)
+            wire = unpack_yuv420(wire, full_range=self._yuv_full_range)
         elif self.transfer_format == "yuv420c4":
-            wire = unpack_yuv420_c4(wire)
+            wire = unpack_yuv420_c4(wire, full_range=self._yuv_full_range)
         x = preprocess(wire)
         out = self.model(x)
         gh, gw = out["grid"]
@@ -250,6 +271,7 @@ class ViTExtractor(BaseExtractor):
         input), and return the checksum sum(scores) + sum(descriptor bytes)
         over all iterations as one device scalar; nothing is read back.
         ``staged`` is a batch already in ``transfer_format`` (``to_wire``)."""
+        self._forward_built = True
         self._require_pca()
         staged = torch.as_tensor(staged).to(self.device)
         acc = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -265,6 +287,7 @@ class ViTExtractor(BaseExtractor):
         batch in ``transfer_format``) with no readback between them: one
         warm call outside the timing, then the calls, then one
         synchronization on the last output."""
+        self._forward_built = True
         self._require_pca()
         staged = torch.as_tensor(staged).to(self.device)
         self.extract_batch_async(staged, packed=True)[1].cpu()
@@ -292,6 +315,8 @@ class ViTExtractor(BaseExtractor):
             fit_pca_deterministic,
             resolve_pca,
         )
+
+        self._forward_built = True
 
         def dense_fn(batch: np.ndarray) -> torch.Tensor:
             step = max(1, self.image_batch)
@@ -335,23 +360,97 @@ class ViTExtractor(BaseExtractor):
             logger.error("No images found in %s", image_dir)
             return
 
-        groups = read_rgb_groups(files)
-        # PCA from the first images in sorted-name order, not arrival order.
-        rgbs = {f: rgb for items in groups.values() for f, rgb in items}
-        if rgbs:
-            self._ensure_pca([rgbs[f] for f in files if f in rgbs])
+        native_io = self._native_route()
+        if native_io is not None:
+            groups = self._probe_groups(files, native_io)
+            rgbs = {}
+        else:
+            groups = read_rgb_groups(files)
+            rgbs = {f: rgb for items in groups.values() for f, rgb in items}
+        # PCA from the first images in sorted-name order, not arrival order;
+        # the native route decodes only that subset to RGB, and nothing when
+        # the PCA file loads.
+        if self._pca is None:
+            pca_loadable = bool(self.pca_path) and Path(self.pca_path).exists()
+            if native_io is not None and not pca_loadable:
+                for f in files[: self.pca_fit_images]:
+                    try:
+                        rgbs[f] = imread_rgb(f)
+                    except ValueError:
+                        pass
+            if rgbs or pca_loadable:
+                self._ensure_pca([rgbs[f] for f in files if f in rgbs])
 
         db = ColmapDatabase(db_path)
         try:
-            self._extract_groups(db, groups, camera_model, camera_params)
+            if native_io is not None:
+                self._extract_native(db, groups, native_io, camera_model, camera_params)
+            else:
+                self._extract_groups(db, groups, camera_model, camera_params)
             db.commit()
         finally:
             db.close()
 
+    def _native_route(self):
+        """``utils.native_io`` when this ``extract()`` takes the native route:
+        a YUV wire format, a forward not built yet and a decoder that loads.
+        Taking it sets full range for good."""
+        if self.transfer_format not in ("yuv420", "yuv420c4") or self._forward_built:
+            return None
+        from vit_colmap_tpu_torch.utils import native_io
+
+        if native_io.load_native() is None:
+            return None
+        self._yuv_full_range = True
+        return native_io
+
+    @staticmethod
+    def _probe_groups(files, native_io) -> dict[tuple[int, int], list[Path]]:
+        """``files`` grouped by (height, width) from their headers, in file
+        order; unreadable headers are skipped with a warning."""
+        groups: dict[tuple[int, int], list[Path]] = {}
+        for f in files:
+            wh = native_io.probe_size(f)
+            if wh is None:
+                logger.warning("Unreadable image skipped: %s", f)
+                continue
+            groups.setdefault((wh[1], wh[0]), []).append(f)
+        return groups
+
+    def _extract_native(self, db, groups, native_io, camera_model: str,
+                        camera_params: Optional[list[float]]) -> None:
+        """Each group under one camera, decoded and resized in C++ straight
+        into I420 batches of ``image_batch`` slots (2 threads), all launched
+        before their rows are written; a slot whose decode failed is
+        skipped.  nvJPEG decodes on the extractor's card."""
+        card = None
+        if self.device.type == "cuda":
+            card = self.device.index if self.device.index is not None else \
+                torch.cuda.current_device()
+        for (oh, ow), gfiles in groups.items():
+            th, tw = patch_grid_size(oh, ow)
+            cam_id = add_group_camera(db, camera_model, camera_params, ow, oh)
+            pending = []
+            for start in range(0, len(gfiles), self.image_batch):
+                chunk = gfiles[start : start + self.image_batch]
+                packed, ok = native_io.decode_batch_i420(
+                    chunk, tw, th, pad_to=self.image_batch, n_threads=2, device=card)
+                names = []
+                for f, good in zip(chunk, ok):
+                    if not good:
+                        logger.warning("Native decode failed: %s", f)
+                    names.append(f.name if good else None)
+                if not ok.any():
+                    continue
+                if self.transfer_format == "yuv420c4":
+                    packed = i420_to_c4(packed)
+                pending.append((names, self.extract_batch_async(packed, packed=True)))
+            self._write_batches(db, cam_id, pending, (tw, th), (ow, oh))
+
     def _batch_rows(self, outs, names, grid_wh, image_wh):
         """A batch's outputs -> each image's valid keypoints in image pixels
-        and its uint8 descriptors; the row-compacted device descriptors go
-        into ``device_cache``."""
+        and its uint8 descriptors (None for a name of None); the
+        row-compacted device descriptors go into ``device_cache``."""
         xy, _sc, valid, desc = outs
         desc_dev = compact_valid_rows(desc, valid)
         xy_np = xy.cpu().numpy()
@@ -359,6 +458,9 @@ class ViTExtractor(BaseExtractor):
         desc_np = desc_dev.cpu().numpy()
         rows = []
         for b, name in enumerate(names):
+            if name is None:  # a slot whose decode failed
+                rows.append(None)
+                continue
             v = valid_np[b]
             cnt = int(v.sum())
             rows.append((self._map_coords(xy_np[b][v], grid_wh, image_wh), desc_np[b][:cnt]))

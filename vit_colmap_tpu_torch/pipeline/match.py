@@ -8,7 +8,8 @@ Counterpart of ``vit_colmap_tpu/pipeline/match.py``:
 2. decode (signed encoding) and L2-normalize on the device;
 3. match pair batches with the pair matcher (the matching kernel on CUDA);
 4. compact matches on the device, read back counts and a prefix, and write
-   the ``matches`` table;
+   the ``matches`` table through the batched C++ writer
+   (``database/native.py``; ``ColmapDatabase`` where it is unavailable);
 5. verify pairs with at least 8 matches in batches through the batched
    RANSAC (``ops.ransac.estimate_two_view_batched``) and write
    ``two_view_geometries`` (config enum, F/E/H and relative pose) for the
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from vit_colmap_tpu_torch.database import TWO_VIEW_CONFIG, ColmapDatabase
+from vit_colmap_tpu_torch.database.native import open_bulk_writer
 from vit_colmap_tpu_torch.device import resolve_device
 from vit_colmap_tpu_torch.ops.matching import (
     compact_matches_device,
@@ -198,7 +200,9 @@ def match_exhaustive(
             if len(m) > 0:
                 all_matches[(i, j)] = m
 
-    writer = ColmapDatabase(db_path)
+    # Bulk writes go through the C++ writer (one transaction) where it
+    # builds; ColmapDatabase is the fallback, as in the JAX package.
+    writer = open_bulk_writer(db_path)
     try:
         for (i, j), m in all_matches.items():
             writer.add_matches(image_ids[i], image_ids[j], m)

@@ -275,7 +275,10 @@ class IncrementalMapper:
             max_error_px=self.cfg.filter_max_reproj_error_px * 2,
         ).cpu().numpy()
         n_inl = int(out[12])
-        if n_inl < max(6, self.cfg.min_num_matches // 2):
+        floor = max(6, self.cfg.min_num_matches // 2)
+        if n_inl < floor:
+            logger.info("Image %d not registered: %d/%d inliers, fewer than %d",
+                        iid, n_inl, n, floor)
             return False
         R = out[:9].reshape(3, 3).astype(np.float64)
         t = out[9:12].astype(np.float64)

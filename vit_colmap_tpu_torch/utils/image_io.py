@@ -1,23 +1,30 @@
 """Image decoding and resizing without OpenCV or PIL.
 
 Takes the place of ``cv2.imread(...)`` + ``cv2.cvtColor(BGR2RGB)`` and
-``cv2.resize(..., interpolation=cv2.INTER_AREA)`` on the port's path, with
-the standard library (``zlib``) and numpy only:
+``cv2.resize(..., interpolation=cv2.INTER_AREA)`` on the port's path:
 
-* PNG: 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced, all five row
-  filters.  Alpha is dropped and gray replicated, as ``cv2.IMREAD_COLOR``
-  does.
+* PNG (standard library ``zlib`` and numpy): 8-bit gray, gray+alpha, RGB
+  and RGBA, non-interlaced, all five row filters.  Alpha is dropped and
+  gray replicated, as ``cv2.IMREAD_COLOR`` does.
 * Binary PPM (P6) and PGM (P5) with maxval <= 255.
-* Anything else (JPEG, interlaced or palette PNG, 16-bit) raises
+* JPEG, through the host C++ decoder (``utils/native_io.py``, built with
+  ``g++`` at first use): the pixels ``cv2.imread`` gives, turned by the
+  file's EXIF orientation as ``cv2.imread`` turns them.  Without the
+  native library (no ``g++`` or no JPEG runtime) JPEG raises
+  ``NotImplementedError``.
+* Anything else (interlaced or palette PNG, 16-bit) raises
   ``NotImplementedError``; a damaged file raises ``ValueError``.
 
 ``imread_gray`` takes the place of ``cv2.imread(..., cv2.IMREAD_GRAYSCALE)``
-with OpenCV's two conversions: a colour PNG goes through libpng's
+with OpenCV's conversions: a colour PNG goes through libpng's
 ``png_set_rgb_to_gray`` (BT.601 weights in 15-bit fixed point, truncated), a
-PPM through the decoder's 14-bit fixed point, rounded.  ``rgb_to_gray`` is
+PPM through the decoder's 14-bit fixed point, rounded, a JPEG is its Y
+plane.  ``rgb_to_gray`` is
 ``cv2.cvtColor(COLOR_BGR2GRAY)`` on decoded pixels (``cv2.imread`` in
 colour, then the conversion): 15-bit fixed point, rounded, which differs
 from either ``IMREAD_GRAYSCALE`` conversion by up to 1.
+
+``write_png``, ``write_ppm`` and ``write_jpeg`` write test images.
 
 ``resize_area`` is ``INTER_AREA``: when neither axis grows, each output
 pixel is the area-weighted mean of the input pixels its footprint overlaps,
@@ -35,6 +42,7 @@ from pathlib import Path
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples per pixel
 
 
@@ -45,10 +53,8 @@ def imread_rgb(path) -> np.ndarray:
         img = decode_png(data)
     elif data[:2] in (b"P5", b"P6"):
         img = decode_pnm(data)
-    elif data[:2] == b"\xff\xd8":
-        raise NotImplementedError(
-            f"{path}: JPEG decoding is not ported yet (PNG and PPM/PGM only)"
-        )
+    elif data.startswith(JPEG_SIGNATURE):
+        return _read_jpeg(path, data, rgb=True)
     else:
         raise NotImplementedError(f"{path}: unsupported image format")
     if img.ndim == 2:
@@ -81,11 +87,74 @@ def imread_gray(path) -> np.ndarray:
         rgb = img.astype(np.uint32)
         return ((4899 * rgb[..., 0] + 9617 * rgb[..., 1] + 1868 * rgb[..., 2] + 8192)
                 >> 14).astype(np.uint8)
-    if data[:2] == b"\xff\xd8":
-        raise NotImplementedError(
-            f"{path}: JPEG decoding is not ported yet (PNG and PPM/PGM only)"
-        )
+    if data.startswith(JPEG_SIGNATURE):
+        return _read_jpeg(path, data, rgb=False)
     raise NotImplementedError(f"{path}: unsupported image format")
+
+
+def _read_jpeg(path, data: bytes, rgb: bool) -> np.ndarray:
+    """A JPEG's RGB or gray pixels from the native decoder, turned by its
+    EXIF orientation."""
+    from vit_colmap_tpu_torch.utils import native_io
+
+    img = native_io.decode_jpeg_rgb(path) if rgb else native_io.decode_jpeg_gray(path)
+    if img is None:
+        raise NotImplementedError(
+            f"{path}: JPEG needs the native image decoder, which is unavailable "
+            "(g++, libz.so.1 and libjpeg.so.62 or nvJPEG; see the log)"
+        )
+    return apply_exif_orientation(img, exif_orientation(data))
+
+
+def exif_orientation(data: bytes) -> int:
+    """The orientation tag (0x0112) of a JPEG's Exif APP1 segment, 1..8, or
+    1 where there is none (or it is out of range)."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:  # fill byte
+            pos += 1
+            continue
+        if marker in (0xD9, 0xDA):  # EOI, SOS: no more header segments
+            break
+        (length,) = struct.unpack(">H", data[pos + 2 : pos + 4])
+        body = data[pos + 4 : pos + 2 + length]
+        if marker == 0xE1 and body.startswith(b"Exif\0\0"):
+            return _tiff_orientation(body[6:])
+        pos += 2 + length
+    return 1
+
+
+def _tiff_orientation(tiff: bytes) -> int:
+    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    end = "<" if tiff[:2] == b"II" else ">"
+    (ifd,) = struct.unpack(end + "I", tiff[4:8])
+    if ifd + 2 > len(tiff):
+        return 1
+    (count,) = struct.unpack(end + "H", tiff[ifd : ifd + 2])
+    for k in range(count):
+        entry = tiff[ifd + 2 + 12 * k : ifd + 14 + 12 * k]
+        if len(entry) < 12:
+            break
+        tag, kind = struct.unpack(end + "HH", entry[:4])
+        if tag == 0x0112 and kind == 3:  # SHORT, stored in the value field
+            (value,) = struct.unpack(end + "H", entry[8:10])
+            return value if 1 <= value <= 8 else 1
+    return 1
+
+
+def apply_exif_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """Turn decoded pixels upright, as OpenCV's ``imread`` does: 2 flips
+    left-right, 3 turns 180 degrees, 4 flips top-bottom, 5-8 transpose and
+    then flip nothing, left-right, both and top-bottom."""
+    if orientation >= 5:
+        img = img.swapaxes(0, 1)
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
 
 
 def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
@@ -232,6 +301,18 @@ def write_png(path, rgb: np.ndarray) -> None:
         + chunk(b"IDAT", zlib.compress(raw, 6))
         + chunk(b"IEND", b"")
     )
+
+
+def write_jpeg(path, img: np.ndarray, quality: int = 95) -> None:
+    """Write (H, W, 3) RGB or (H, W) gray uint8 as a baseline JPEG at
+    ``quality`` (4:2:0 chroma), through the native encoder."""
+    from vit_colmap_tpu_torch.utils import native_io
+
+    if not native_io.encode_jpeg(path, img, quality):
+        raise NotImplementedError(
+            f"{path}: writing JPEG needs the native image library, which is "
+            "unavailable (see the log)"
+        )
 
 
 def write_ppm(path, rgb: np.ndarray) -> None:
