@@ -151,12 +151,29 @@ Phases, one flushed line each with elapsed seconds:
    the CPU (loss components and heads gradients); then the fine-tuned
    ``best_model`` through ``Pipeline.run(extractor_type="trainable_vit")``
    on the slice's 8 images (kernel 1 in every backbone layer, kernel 2
-   once), its matches and tokens against the plain versions.
+   once), its matches and tokens against the plain versions;
+8. parallel: ``parallel/`` on the one card as two mesh slots on it: (a) a
+   two-slot ``ViTExtractor`` (the slice's PCA) on the 8 images, one image a
+   slot in each batch (kernel 1 96 times, twice a batch's 12 a slot), and
+   ``match_exhaustive`` over the slots (kernel 2 once a slot); the slice's
+   database through the two-slot matcher gives the slice's matches bit for
+   bit; (b) two images over two slots against each alone, bit for bit, and
+   the largest token difference from the slice's batch of two (logged);
+   (c) ``shard_descriptors`` over the slots gives the replicated rows bit
+   for bit; (d) one training step over two slots against one slot on a
+   batch of 4 of the train tree in f32 (loss components and heads
+   gradients), and DDP's per-slot loss, which must miss the loss bound;
+   (e) ``multihost.initialize`` from the environment contract, a world of
+   one over NCCL, ``is_primary``, ``local_image_slice`` and one
+   ``all_gather`` of a card tensor.  The native-io phase also holds the
+   JPEG route to libjpeg's bytes of the committed ``tests/data/jpeg/``
+   fixtures, per plane (``NVJPEG_BOUNDS``).
 
 Every path (the main one, each of 5a-5d, calibrated verification, the
 mapper, SIFT, the 50-view scene, the wire, the trainable path, vitg14,
 registers, int8, the hybrid, each serve job, the device loops, each
-native-io run and the train path's Pipeline.run) is driven with the kernels'
+native-io run, the train path's Pipeline.run and each run of the parallel
+phase) is driven with the kernels'
 launch counts set to 0 just before it and read just after; each kernel
 must have launched on its path, and the kernels it replaces must not have
 (verification, the mapper and SIFT launch none of the five).
@@ -3540,6 +3557,262 @@ def train_phase(work: Path, weights: Path) -> dict:
             "card_cpu": agree, "report": report}
 
 
+# The parallel phase: the mesh paths of parallel/ on one card, as two slots
+# on DEVICE (the card reports one device; no several-card machine is
+# assumed).  Training: a batch of PAR_TRAIN_BATCH pairs of the train phase's
+# tree through one step over two slots and over one, in f32: the split
+# changes only which rows each forward holds, so loss components and heads
+# gradients agree within f32 rounding (PAR_LOSS_TOL relative, PAR_GRAD_TOL of
+# each tensor's largest gradient); DDP's per-slot loss (each slot's own
+# roll of the cross-image negatives, pos_weight and variance, averaged) must
+# miss PAR_LOSS_TOL.
+PAR_SLOTS = 2
+PAR_TRAIN_BATCH = 4
+PAR_LOSS_TOL = 1e-4
+PAR_GRAD_TOL = 3e-3
+
+
+def match_rows(db_path: Path) -> list:
+    import sqlite3
+
+    with sqlite3.connect(db_path) as conn:
+        return sorted(conn.execute("SELECT pair_id, rows, cols, data FROM matches").fetchall())
+
+
+def cleared_copy(src: Path, dst: Path) -> Path:
+    """``src`` without its matches and two-view geometries."""
+    import shutil
+    import sqlite3
+
+    shutil.copy(src, dst)
+    with sqlite3.connect(dst) as conn:
+        conn.execute("DELETE FROM matches")
+        conn.execute("DELETE FROM two_view_geometries")
+    return dst
+
+
+def parallel_train(data: Path, weights: Path, heads_dir: Path, mesh) -> dict:
+    """One step over PAR_SLOTS slots and over one, and DDP's per-slot loss,
+    on one fixed batch from the same parameters and uniforms."""
+    import numpy as np
+    import torch
+
+    from vit_colmap_tpu_torch.dataloader.hpatches_dataset import HPatchesDataset, stack_items
+    from vit_colmap_tpu_torch.dataloader.training_batch import process_batch
+    from vit_colmap_tpu_torch.losses.feature_losses import total_loss
+    from vit_colmap_tpu_torch.models.convert import load_torch_checkpoint
+    from vit_colmap_tpu_torch.models.dinov2 import make_backbone
+    from vit_colmap_tpu_torch.models.feature_model import FeatureHeads, FeatureModelConfig
+    from vit_colmap_tpu_torch.training import train_step
+    from vit_colmap_tpu_torch.training.checkpoint import load_checkpoint
+
+    ds = HPatchesDataset(data, pair_mode="all_pairs", target_height=TRAIN_CHECK_HW[0],
+                         target_width=TRAIN_CHECK_HW[1], seed=0)
+    n = len(ds)
+    batch = stack_items([ds[i] for i in (0, 1, n - 2, n - 1)][:PAR_TRAIN_BATCH])
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    bb, _ = make_backbone(TRAIN_BACKBONE, dtype=torch.float32)
+    bb.load_state_dict(load_torch_checkpoint(str(weights)))
+    bb.to(DEVICE).requires_grad_(False)
+    heads_sd = load_checkpoint(heads_dir)["heads"]
+
+    def fresh_heads():
+        heads = FeatureHeads(FeatureModelConfig(backbone=TRAIN_BACKBONE, dtype=torch.float32),
+                             bb.cfg.embed_dim)
+        heads.load_state_dict(heads_sd)
+        return heads.to(DEVICE)
+
+    def draws():
+        rng = np.random.default_rng(7)
+        return lambda shape: torch.from_numpy(rng.random(shape, dtype=np.float32))
+
+    def step_over(devices):
+        heads = fresh_heads()
+        recipe = train_step.make_optimizer(total_steps=10, warmup_steps=2)
+        step, _ = train_step.make_train_step(bb, heads, recipe,
+                                             batch_kwargs=dict(top_k=TRAIN_CHECK_TOPK),
+                                             devices=devices)
+        _, metrics = step(train_step.init_train_state(heads, recipe), batch, draws())
+        sync()
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: p.grad.float().cpu() for k, p in heads.named_parameters()})
+
+    def per_slot_loss(k):
+        heads, uniforms, parts = fresh_heads(), draws(), []
+        with torch.no_grad():
+            for i in range(k):
+                share = {key: v.chunk(k)[i] for key, v in batch.items()}
+                out = total_loss(*process_batch(bb, heads, share, uniforms,
+                                                top_k=TRAIN_CHECK_TOPK))
+                parts.append({"total_loss": float(out.total),
+                              **{key: float(v) for key, v in out.components.items()}})
+        return {key: float(np.mean([p[key] for p in parts])) for key in parts[0]}
+
+    def loss_err(m, ref):
+        return {k: abs(m[k] - v) / max(abs(v), 1e-6) for k, v in ref.items() if k in LOSS_KEYS}
+
+    m_one, g_one = step_over(mesh.data_devices[:1])
+    m_two, g_two = step_over(mesh.data_devices)
+    grad_err = max((g_two[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-12)
+                   for k, g in g_one.items())
+    wrong = loss_err(per_slot_loss(PAR_SLOTS), m_one)
+    log(f"parallel: known-wrong 'DDP per-slot loss averaged': loss relative errors {wrong} "
+        f"(the largest must exceed {PAR_LOSS_TOL})")
+    if not max(wrong.values()) > PAR_LOSS_TOL:
+        POWERLESS.append(f"parallel 'DDP per-slot loss': {wrong}")
+    return {"loss_rel_err": loss_err(m_two, m_one), "grad_rel_err": grad_err,
+            "wrong_loss_rel_err": wrong}
+
+
+def process_seam() -> dict:
+    """parallel/multihost.py from the environment contract: a world of one
+    (NCCL on the card), rank, primary, the image plan and one all_gather of
+    a device tensor; the group destroyed and the environment put back."""
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from vit_colmap_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "NUM_PROCESSES": "1",
+           "PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        multi = multihost.initialize()
+        check(dist.is_initialized() and dist.get_world_size() == 1 and not multi,
+              "parallel: the process group did not form a world of one")
+        backend = dist.get_backend()
+        check(backend == ("nccl" if DEVICE == "cuda" else "gloo"),
+              f"parallel: backend {backend}")
+        paths = [f"img_{i:02d}.png" for i in range(NUM_IMAGES)]
+        check(multihost.is_primary() and multihost.local_image_slice(paths) == paths,
+              "parallel: rank 0 is not primary or does not plan every image")
+        x = torch.arange(4, device=DEVICE, dtype=torch.float32) + 1
+        got = [torch.zeros_like(x)]
+        dist.all_gather(got, x)
+        sync()
+        check(torch.equal(got[0], x), f"parallel: all_gather gave {got}")
+    finally:
+        multihost.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(not dist.is_initialized(), "parallel: the process group outlived shutdown")
+    return {"backend": backend, "world": 1, "port": port}
+
+
+def parallel_phase(work: Path, weights: Path, extractor, data: Path, heads_dir: Path) -> dict:
+    """The mesh paths of ``parallel/`` as PAR_SLOTS slots on the card: (a) a
+    two-slot ViTExtractor (the slice's PCA) extracts the 8 images, one image
+    a slot in each batch of IMAGE_BATCH (kernel 1 twice as often a batch as
+    on one device), and ``match_exhaustive`` over the slots matches them
+    (kernel 2 once a slot for the one pair batch); the slice's one-device
+    database through the two-slot matcher gives the slice's matches bit for
+    bit; (b) the two-slot extraction of two images against each image
+    extracted alone (padded with a zero image, slot 0), bit for bit, and the
+    largest token difference from the slice extractor's batch of two;
+    (c) ``shard_descriptors`` over the two slots gives the replicated rows
+    bit for bit; (d) one training step over two slots against one slot, and
+    DDP's per-slot loss; (e) the process seam over NCCL."""
+    import dataclasses
+
+    import numpy as np
+
+    from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.parallel.mesh import get_mesh
+    from vit_colmap_tpu_torch.pipeline.match import match_exhaustive
+    from vit_colmap_tpu_torch.utils.config import CameraConfig, MatchingConfig
+    from vit_colmap_tpu_torch.utils.image_io import imread_rgb
+
+    t0 = time.perf_counter()
+    mesh = get_mesh([DEVICE] * PAR_SLOTS)
+    ex2 = ViTExtractor(weights_path=str(weights), backbone="vitb14",
+                       max_keypoints=MAX_KEYPOINTS, image_batch=IMAGE_BATCH, mesh=mesh)
+    ex2.set_pca(*(t.cpu().numpy() for t in extractor._pca))
+    cfg = MatchingConfig(pair_batch=PAIR_BATCH, descriptor_encoding="signed",
+                         do_verification=False)
+    launches = {}
+
+    # (a) Extraction and matching over the slots.
+    sync()
+    counts.clear()
+    ex2.extract(work / "images", work / "par.db", CameraConfig().model)
+    sync()
+    launches["extract"] = dict(counts)
+    expect_launches(launches["extract"], {"attention_qkv": 12 * NUM_IMAGES},
+                    "parallel extraction (one image a slot)")
+    counts.clear()
+    stats = match_exhaustive(work / "par.db", cfg, device_descriptors=ex2.device_cache,
+                             mesh=mesh)
+    sync()
+    launches["match"] = dict(counts)
+    expect_launches(launches["match"], {"match_topk2_colmax": PAR_SLOTS * MATCH_BATCHES},
+                    "parallel matching")
+    check(stats.matched_pairs > 0, f"parallel: no pair matched: {stats}")
+    slice_rows = match_rows(work / "run1.db")
+    counts.clear()
+    match_exhaustive(cleared_copy(work / "run1.db", work / "par_rep.db"), cfg, mesh=mesh)
+    sync()
+    launches["replicated"] = dict(counts)
+    expect_launches(launches["replicated"], {"match_topk2_colmax": PAR_SLOTS * MATCH_BATCHES},
+                    "parallel matching of the slice's database")
+    check(match_rows(work / "par_rep.db") == slice_rows,
+          "parallel: the two-slot matcher's rows differ from the slice's")
+
+    # (c) Descriptors sharded over the slots.
+    counts.clear()
+    match_exhaustive(cleared_copy(work / "run1.db", work / "par_shard.db"),
+                     dataclasses.replace(cfg, shard_descriptors=True), mesh=mesh)
+    sync()
+    launches["shard_descriptors"] = dict(counts)
+    expect_launches(launches["shard_descriptors"],
+                    {"match_topk2_colmax": PAR_SLOTS * MATCH_BATCHES},
+                    "parallel shard_descriptors matching")
+    check(match_rows(work / "par_shard.db") == slice_rows,
+          "parallel: shard_descriptors rows differ from the replicated ones")
+
+    # (b) One image a slot against each image alone, bit for bit.
+    imgs = np.stack([imread_rgb(f) for f in sorted((work / "images").iterdir())[:PAR_SLOTS]])
+    both = ex2.extract_batch(imgs)
+    for i in range(PAR_SLOTS):
+        alone = ex2.extract_batch(imgs[i:i + 1])
+        check(all(np.array_equal(a[i], b[0]) for a, b in zip(both, alone)),
+              f"parallel: image {i} of the two-slot batch differs from its extraction alone")
+    token_diff = float((ex2.dense_features(imgs) - extractor.dense_features(imgs))
+                       .abs().max())
+    log(f"parallel: two-slot extraction of {PAR_SLOTS} images equal bit for bit to each "
+        f"extracted alone; largest token difference from the slice extractor's batch of "
+        f"{PAR_SLOTS} on one device {token_diff:.4g} (logged only: cuBLAS may take other "
+        f"kernels for another batch)")
+
+    # (d) Training; (e) the process seam.
+    train = parallel_train(data, weights, heads_dir, mesh)
+    log(f"parallel: one training step over {PAR_SLOTS} slots against one slot, f32: loss "
+        f"relative errors {train['loss_rel_err']} (bound {PAR_LOSS_TOL}), heads gradients "
+        f"max |diff| / max |one slot| {train['grad_rel_err']:.3g} (bound {PAR_GRAD_TOL})")
+    check(max(train["loss_rel_err"].values()) <= PAR_LOSS_TOL
+          and train["grad_rel_err"] <= PAR_GRAD_TOL, f"parallel: training {train}")
+    seam = process_seam()
+    total = {}
+    for run in launches.values():
+        for k, v in run.items():
+            total[k] = total.get(k, 0) + v
+    wall = time.perf_counter() - t0
+    log(f"parallel: {PAR_SLOTS} slots on {DEVICE}, launches {launches}, matched pairs "
+        f"{stats.matched_pairs}, process seam {seam}, {wall:.1f} s")
+    return {"launches": total, "by_run": launches, "train": train, "seam": seam,
+            "token_diff": token_diff, "wall_s": wall}
+
+
 # The hybrid, serve and device-loops phases.  The detectors on one
 # structured image at the main path's size, card against CPU: FAST and
 # GFTT must be equal; SIFT and ORB are held to tests/test_torch_cv_detectors.py's
@@ -3774,6 +4047,52 @@ def table_rows(db_path: Path, table: str) -> list:
         con.close()
 
 
+# libjpeg's bytes of the committed JPEGs (tests/data/jpeg/, written by
+# scripts/torch_jpeg_fixtures.py): the codec's route against them, per plane.
+# nvJPEG's planes are finished by libjpeg's own upsampling and colour
+# conversion (csrc/host/jpeg_color.cc), so only its IDCT differs: it rounds a
+# sample to the other side of a half at most, one level, and the triangle
+# filters and the resample are averages, which keep a one-level error at one
+# (YCbCr and I420 planes, max 1).  RGB adds Y's level to 1.402 (R), 1.772
+# (B) or 0.344 + 0.714 (G) levels of chroma: at most 3 after rounding.  The
+# means bound the share of samples the IDCT moves: 5% of the YCbCr / I420
+# samples by one level (PR 16's card: 1.0-2.7%), and 0.10 for RGB (0.03-0.06).
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+NVJPEG_BOUNDS = {"ycc": (1, 0.05), "i420": (1, 0.05), "rgb": (3, 0.10)}
+
+
+def jpeg_fixture_diffs() -> dict:
+    """route ("ycc", "i420", "rgb") -> plane -> (max, mean) absolute
+    difference of this machine's JPEG route from libjpeg's committed bytes,
+    the worst over the fixtures (I420 decoded on card 0)."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.utils import native_io
+
+    worst: dict = {}
+    jpgs = sorted(JPEG_FIXTURES.glob("*.jpg"))
+    check(len(jpgs) == 6, f"JPEG fixtures: {len(jpgs)} under {JPEG_FIXTURES}")
+    for jpg in jpgs:
+        ref = np.load(jpg.with_suffix(".npz"))
+        tw, th = (int(v) for v in ref["size"])
+        i420, ok = native_io.decode_batch_i420([jpg], tw, th, device=0)
+        check(bool(ok.all()), f"JPEG fixture {jpg.name}: decode failed")
+        n, nc = tw * th, (tw // 2) * (th // 2)
+        cut = {"Y": slice(0, n), "U": slice(n, n + nc), "V": slice(n + nc, n + 2 * nc)}
+        got = {"ycc": native_io.decode_jpeg_ycc(jpg), "rgb": native_io.decode_jpeg_rgb(jpg)}
+        planes = {route: {p: (got[route][..., c], ref[route][..., c])
+                          for c, p in enumerate("YUV" if route == "ycc" else "RGB")}
+                  for route in got}
+        planes["i420"] = {p: (i420[0].ravel()[c], ref["i420"].ravel()[c])
+                          for p, c in cut.items()}
+        for route, by_plane in planes.items():
+            for p, (a, b) in by_plane.items():
+                d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+                mx, mean = worst.setdefault(route, {}).get(p, (0, 0.0))
+                worst[route][p] = (max(mx, int(d.max())), max(mean, float(d.mean())))
+    return worst
+
+
 def native_io_phase(work: Path, weights: Path) -> dict:
     """The host C++ libraries on the main path: (a) both load, with the
     sonames ldd resolves; (b) the 8 PNGs through ``Pipeline.run`` with
@@ -3930,6 +4249,14 @@ def native_io_phase(work: Path, weights: Path) -> dict:
     log(f"native-io: {NUM_IMAGES} JPEGs (quality {NATIVE_JPEG_QUALITY}, {codec}) decoded "
         f"against their source pixels, mean abs {jpeg_err} (bound {NATIVE_JPEG_ERR})")
     check(max(jpeg_err.values()) < NATIVE_JPEG_ERR, f"native-io: JPEG error {jpeg_err}")
+    fixture_diffs = jpeg_fixture_diffs()
+    log(f"native-io: the {codec} route against libjpeg's bytes of the committed JPEGs "
+        f"(4:2:0, 4:2:2, 4:4:0, 4:4:4, gray), worst (max, mean) |diff| per plane "
+        f"{fixture_diffs}, bounds (max, mean) {NVJPEG_BOUNDS}")
+    for route, by_plane in fixture_diffs.items():
+        mx, mean = NVJPEG_BOUNDS[route]
+        check(all(d[0] <= mx and d[1] <= mean for d in by_plane.values()),
+              f"native-io: {route} planes {by_plane} beyond ({mx}, {mean})")
     jpeg_runs = {}
     for fmt, decodes in (("rgb", {"rgb": NUM_IMAGES}),
                          ("yuv420c4", {"i420": NUM_IMAGES, "rgb": NUM_IMAGES})):
@@ -4028,7 +4355,8 @@ def native_io_phase(work: Path, weights: Path) -> dict:
             "pack_s": pack_s, "extract_s": extract_s,
             "png": [r["database"] for r in png_runs],
             "jpeg": {k: r["database"] for k, r in jpeg_runs.items()},
-            "jpeg_err": jpeg_err, "writer_s": writer_s, "decode_ms": ms_per_image,
+            "jpeg_err": jpeg_err, "jpeg_fixtures": fixture_diffs, "writer_s": writer_s,
+            "decode_ms": ms_per_image,
             "launches": launches, "scene_launches": scene_launches}
 
 
@@ -4324,6 +4652,8 @@ def main() -> int:
             pipeline, work, work / "images", inputs_main, fixedmax_extractor, int8_ops,
             max_mhz, sass["match_topk2_int8"]["main_loop_opcodes"])
         train = train_phase(work, work / "vitb14_random.pth")
+        parallel = parallel_phase(work, work / "vitb14_random.pth", extractor,
+                                  work / "hpatches", work / "train_frozen" / "best_model")
     check(not POWERLESS, "known-wrong kernels passed a check: " + "; ".join(POWERLESS))
 
     # name -> (source, TPU kernel it replaces, launches on its own path)
@@ -4351,6 +4681,7 @@ def main() -> int:
              "train": train["launches"], "hybrid": hybrid["launches"],
              "serve": serve["launches"], "device_loops": loops["launches"],
              "native_io": native["launches"], "native_io_scene": native["scene_launches"],
+             "parallel": parallel["launches"],
              "fixedmax": fixedmax_launches, **{f"paths_{k}": v for k, v in
                                               path_launches.items()}}
     kernels = []
@@ -4379,6 +4710,7 @@ def main() -> int:
         f"train card vs CPU {train['card_cpu']}, "
         f"hybrid { {k: v for k, v in hybrid.items() if k != 'launches'} }, serve {serve}, "
         f"device loops {loops}, "
+        f"parallel { {k: v for k, v in parallel.items() if k != 'launches'} }, "
         f"native-io { {k: v for k, v in native.items() if 'launches' not in k} }, "
         f"rates {rates}, "
         f"int8 rows differing from the float matcher {int8_vs_float}, saliency "

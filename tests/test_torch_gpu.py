@@ -920,3 +920,69 @@ def test_host_jpeg_codec_round_trips_on_the_card_machine(cuda_device, tmp_path):
     assert (back[1] - torch.from_numpy(rgb[..., 1:2]).float()).abs().mean() < 8
     assert np.abs(image_io.imread_rgb(paths[0]).astype(int) - rgb).mean() < 8
     assert np.abs(image_io.imread_gray(paths[1]).astype(int) - rgb[..., 1]).mean() < 8
+
+
+@pytest.mark.gpu
+def test_jpeg_route_within_bounds_of_libjpeg_bytes(cuda_device):
+    """The card machine's JPEG route (nvJPEG's planes finished by libjpeg's
+    upsampling and colour conversion on the host) against libjpeg's bytes of
+    the committed fixtures, per plane, within chip_smoke.py's
+    NVJPEG_BOUNDS (max, mean); on a machine with libjpeg, equal."""
+    from vit_colmap_tpu_torch.kernels import host_build
+    from vit_colmap_tpu_torch.utils import native_io
+
+    if native_io.load_native() is None:
+        pytest.fail("the host image library does not build on the GPU machine")
+    cs = _chip_smoke()
+    diffs = cs.jpeg_fixture_diffs()
+    assert set(diffs) == set(cs.NVJPEG_BOUNDS)
+    for route, by_plane in diffs.items():
+        mx, mean = cs.NVJPEG_BOUNDS[route] if host_build.jpeg_codec() == "nvjpeg" else (0, 0)
+        assert all(d[0] <= mx and d[1] <= mean for d in by_plane.values()), (route, by_plane)
+
+
+@pytest.mark.gpu
+def test_two_slots_on_one_card(cuda_device):
+    """A two-slot mesh on the card: extraction of two images (vits14,
+    kernel 1 on each slot's share) equal bit for bit to each image alone,
+    and the pair-sliced and descriptor-sharded matchers (kernel 2 once a
+    slot) equal to one device's kernel 2."""
+    import numpy as np
+
+    from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
+    from vit_colmap_tpu_torch.ops.interpolate import fit_pca
+    from vit_colmap_tpu_torch.ops.matching import normalize_descriptors
+    from vit_colmap_tpu_torch.parallel.mesh import get_mesh
+    from vit_colmap_tpu_torch.pipeline.match import (
+        _build_desc_sharded_matcher,
+        _build_sharded_pallas_matcher,
+    )
+
+    mesh = get_mesh([cuda_device] * 2)
+    rng = np.random.default_rng(0)
+    # 32 x 40 patches: images below 1,024 patches never reach kernel 1
+    imgs = rng.integers(0, 256, (2, 448, 560, 3), dtype=np.uint8)
+    ex = ViTExtractor(backbone="vits14", max_keypoints=256, image_batch=2, mesh=mesh)
+    ex.set_pca(*(t.numpy() for t in fit_pca(
+        torch.from_numpy(rng.standard_normal((512, 384)).astype(np.float32)), 128)))
+    before = launches["attention_qkv"]
+    both = ex.extract_batch(imgs)
+    assert launches["attention_qkv"] == before + 2 * 12
+    for i in range(2):
+        alone = ex.extract_batch(imgs[i:i + 1])
+        assert all(np.array_equal(a[i], b[0]) for a, b in zip(both, alone))
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    desc = normalize_descriptors(torch.randn(6, 512, 128, device=cuda_device, generator=g))
+    valid = torch.ones(6, 512, dtype=torch.bool, device=cuda_device)
+    valid[5] = False
+    pairs = [(i, j) for i in range(6) for j in range(i + 1, 6)] + [(0, 0)]
+    i1 = torch.tensor([p[0] for p in pairs])
+    i2 = torch.tensor([p[1] for p in pairs])
+    ref = match.match_pairs(desc[i1.to(cuda_device)], desc[i2.to(cuda_device)],
+                            valid[i1.to(cuda_device)], valid[i2.to(cuda_device)])
+    for build in (_build_sharded_pallas_matcher, _build_desc_sharded_matcher):
+        before = launches["match_topk2_colmax"]
+        out = build(mesh, True)(desc, valid, i1, i2)
+        assert launches["match_topk2_colmax"] == before + 2
+        assert torch.equal(out, ref), build.__name__

@@ -234,7 +234,8 @@ def test_imread_without_the_library_raises(image_files, monkeypatch):
 
 # ------------------------------------------------------------------ the ABI
 COMMON = ["err", "mem", "progress", "client_data", "is_decompressor", "global_state"]
-STRUCTS = ("jpeg_error_mgr", "jpeg_compress_struct", "jpeg_decompress_struct")
+STRUCTS = ("jpeg_error_mgr", "jpeg_component_info", "jpeg_compress_struct",
+           "jpeg_decompress_struct")
 
 
 def _declared_fields(header: str, name: str) -> list[str]:
@@ -260,10 +261,12 @@ def test_jpeg62_declarations_match_jpeglib_h(tmp_path):
     text = header.read_text()
     lines = []
     for s in STRUCTS:
-        lines.append(f'std::printf("{s} %zu\\n", sizeof(struct {s}));')
+        # No "struct" keyword: jpeglib.h declares jpeg_component_info as a
+        # typedef of an unnamed struct, and C++ names both kinds alike.
+        lines.append(f'std::printf("{s} %zu\\n", sizeof({s}));')
         for f in _declared_fields(text, s):
-            lines.append(f'std::printf("{s}.{f} %zu %zu\\n", offsetof(struct {s}, {f}), '
-                         f"sizeof(((struct {s}*)0)->{f}));")
+            lines.append(f'std::printf("{s}.{f} %zu %zu\\n", offsetof({s}, {f}), '
+                         f"sizeof((({s}*)0)->{f}));")
     main = "int main() {\n" + "\n".join(lines) + "\nreturn 0;\n}\n"
     layouts = []
     for include in ("#include <jpeglib.h>", f'#include "{header}"'):

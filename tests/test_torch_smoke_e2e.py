@@ -172,12 +172,29 @@ def test_cli_verifies_on_cpu(tmp_path):
         assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
 
 
-def test_shard_descriptors_is_not_ported(tmp_path):
-    make_checkerboards(tmp_path / "images", n=2)
-    DummyExtractor(device="cpu").extract(tmp_path / "images", tmp_path / "s.db", "PINHOLE")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        match_exhaustive(tmp_path / "s.db", MatchingConfig(shard_descriptors=True),
-                         device="cpu")
+def _match_rows(db_path):
+    with ColmapDatabase.open_database(db_path) as db:
+        return sorted((pid, blob) for pid, blob in
+                      db.conn.execute("SELECT pair_id, data FROM matches").fetchall())
+
+
+@pytest.mark.parametrize("one_slot_mesh", [False, True])
+def test_shard_descriptors_on_one_slot_gives_the_replicated_rows(tmp_path, one_slot_mesh):
+    """``shard_descriptors=True`` on one CPU slot (a mesh of one slot, or no
+    mesh, where the JAX package ignores it too) writes the rows of the
+    replicated matcher."""
+    from vit_colmap_tpu_torch.parallel.mesh import get_mesh
+
+    make_checkerboards(tmp_path / "images", n=3)
+    for name in ("rep.db", "shard.db"):
+        DummyExtractor(device="cpu").extract(tmp_path / "images", tmp_path / name, "PINHOLE")
+    off = MatchingConfig(do_verification=False)
+    on = MatchingConfig(do_verification=False, shard_descriptors=True)
+    match_exhaustive(tmp_path / "rep.db", off, device="cpu")
+    mesh = get_mesh(["cpu"]) if one_slot_mesh else None
+    stats = match_exhaustive(tmp_path / "shard.db", on, device="cpu", mesh=mesh)
+    assert stats.matched_pairs == 3
+    assert _match_rows(tmp_path / "shard.db") == _match_rows(tmp_path / "rep.db")
 
 
 def test_run_returns_report_when_metrics_export_fails(tmp_path, monkeypatch):

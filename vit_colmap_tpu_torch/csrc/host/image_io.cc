@@ -29,7 +29,18 @@
 //   vc_decode_jpeg_pixels(path, w, h, channels, out)
 //                                              cv2.imread's RGB (3) or
 //                                              IMREAD_GRAYSCALE (1) pixels
-//   vc_encode_jpeg(path, pixels, w, h, channels, quality)
+//   vc_decode_jpeg_ycc(path, w, h, out)        the codec's full-resolution
+//                                              YCbCr, (h, w, 3) interleaved
+//   vc_decode_jpeg_planes(path, dims, y, cb, cr, capacity)
+//                                              the stored planes (dims: w, h,
+//                                              cw, ch; cw = ch = 0 for gray);
+//                                              3 when a plane exceeds
+//                                              capacity bytes
+//   vc_upsample_ycc(y, cb, cr, w, h, cw, ch, out)
+//                                              libjpeg's fancy upsampling of
+//                                              stored planes -> (h, w, 3)
+//   vc_ycc_to_rgb(y, cb, cr, n, out)           libjpeg's YCbCr -> RGB
+//   vc_encode_jpeg(path, pixels, w, h, channels, quality, chroma)
 // I420 output is (th * 3 / 2) * tw bytes per image, planes Y[th*tw],
 // U[(th/2)*(tw/2)], V[...]; th and tw must be even.
 
@@ -380,9 +391,70 @@ int vc_decode_jpeg_pixels(const char* path, int w, int h, int channels,
   return vc::jpeg_decode_pixels(path, w, h, channels, out) ? 0 : 1;
 }
 
+int vc_decode_jpeg_ycc(const char* path, int w, int h, uint8_t* out) {
+  vc::Planes p;
+  if (!vc::jpeg_decode_ycc(path, &p)) return 1;
+  if (p.w != w || p.h != h) return 2;
+  const size_t n = static_cast<size_t>(w) * h;
+  for (size_t i = 0; i < n; ++i) {
+    out[3 * i] = p.y[i];
+    out[3 * i + 1] = p.cb[i];
+    out[3 * i + 2] = p.cr[i];
+  }
+  return 0;
+}
+
+int vc_decode_jpeg_planes(const char* path, int* dims, uint8_t* y,
+                          uint8_t* cb, uint8_t* cr, long long capacity) {
+  vc::Planes p;
+  if (!vc::jpeg_decode_planes(path, &p)) return 1;
+  dims[0] = p.w;
+  dims[1] = p.h;
+  dims[2] = p.cw;
+  dims[3] = p.ch;
+  const long long n = static_cast<long long>(p.w) * p.h;
+  const long long nc = static_cast<long long>(p.cw) * p.ch;
+  if (n > capacity || nc > capacity) return 3;
+  std::memcpy(y, p.y.data(), n);
+  if (nc) {
+    std::memcpy(cb, p.cb.data(), nc);
+    std::memcpy(cr, p.cr.data(), nc);
+  }
+  return 0;
+}
+
+int vc_upsample_ycc(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                    int w, int h, int cw, int ch, uint8_t* out) {
+  vc::Planes in, full;
+  const size_t n = static_cast<size_t>(w) * h;
+  const size_t nc = static_cast<size_t>(cw) * ch;
+  in.w = w;
+  in.h = h;
+  in.cw = cw;
+  in.ch = ch;
+  in.y.assign(y, y + n);
+  if (nc) {
+    in.cb.assign(cb, cb + nc);
+    in.cr.assign(cr, cr + nc);
+  }
+  if (!vc::upsample_planes(in, &full)) return 1;
+  for (size_t i = 0; i < n; ++i) {
+    out[3 * i] = full.y[i];
+    out[3 * i + 1] = full.cb[i];
+    out[3 * i + 2] = full.cr[i];
+  }
+  return 0;
+}
+
+int vc_ycc_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                  long long n, uint8_t* out) {
+  vc::ycc_to_rgb(y, cb, cr, static_cast<size_t>(n), out);
+  return 0;
+}
+
 int vc_encode_jpeg(const char* path, const uint8_t* pixels, int w, int h,
-                   int channels, int quality) {
-  return vc::jpeg_encode(path, pixels, w, h, channels, quality) ? 0 : 1;
+                   int channels, int quality, int chroma) {
+  return vc::jpeg_encode(path, pixels, w, h, channels, quality, chroma) ? 0 : 1;
 }
 
 }  // extern "C"

@@ -18,9 +18,11 @@ typedef unsigned int JDIMENSION;
 typedef unsigned char JSAMPLE;
 typedef JSAMPLE* JSAMPROW;
 typedef JSAMPROW* JSAMPARRAY;
+typedef JSAMPARRAY* JSAMPIMAGE;
 
 #define JPEG_LIB_VERSION 62
 #define JMSG_LENGTH_MAX 200
+#define DCTSIZE 8
 
 typedef enum {
   JCS_UNKNOWN,
@@ -55,6 +57,32 @@ struct jpeg_error_mgr {
   const char* const* addon_message_table;
   int first_addon_message;
   int last_addon_message;
+};
+
+// One entry of comp_info (jpeglib.h's typedef of an unnamed struct; the
+// same layout under a name).
+struct jpeg_component_info {
+  int component_id;
+  int component_index;
+  int h_samp_factor;
+  int v_samp_factor;
+  int quant_tbl_no;
+  int dc_tbl_no;
+  int ac_tbl_no;
+  JDIMENSION width_in_blocks;
+  JDIMENSION height_in_blocks;
+  int DCT_scaled_size;
+  JDIMENSION downsampled_width;
+  JDIMENSION downsampled_height;
+  boolean component_needed;
+  int MCU_width;
+  int MCU_height;
+  int MCU_blocks;
+  int MCU_sample_width;
+  int last_col_width;
+  int last_row_height;
+  void* quant_table;
+  void* dct_table;
 };
 
 #define VC_JPEG_COMMON_FIELDS \
@@ -233,6 +261,8 @@ int jpeg_read_header(j_decompress_ptr cinfo, boolean require_image);
 boolean jpeg_start_decompress(j_decompress_ptr cinfo);
 JDIMENSION jpeg_read_scanlines(j_decompress_ptr cinfo, JSAMPARRAY scanlines,
                                JDIMENSION max_lines);
+JDIMENSION jpeg_read_raw_data(j_decompress_ptr cinfo, JSAMPIMAGE data,
+                              JDIMENSION max_lines);
 boolean jpeg_finish_decompress(j_decompress_ptr cinfo);
 
 }  // extern "C"

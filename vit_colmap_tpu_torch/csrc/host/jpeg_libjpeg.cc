@@ -5,7 +5,8 @@
 // defaults (ISLOW IDCT, fancy upsampling), so chroma comes back at full
 // resolution.  jpeg_decode_pixels is what cv2.imread gives: JCS_RGB for
 // colour, JCS_GRAYSCALE (the Y plane) for gray; a gray file read as RGB
-// is its Y replicated.
+// is its Y replicated.  jpeg_decode_planes reads the stored planes raw
+// (raw_data_out, jpeg_read_raw_data), the input of jpeg_color.cc's steps.
 
 #include <csetjmp>
 #include <cstring>
@@ -99,6 +100,72 @@ bool jpeg_decode_ycc(const char* path, Planes* out) {
   });
 }
 
+bool jpeg_decode_planes(const char* path, Planes* out) {
+  return with_decompress(path, [&](j_decompress_ptr cinfo,
+                                   std::vector<uint8_t>& row) {
+    const bool gray = cinfo->jpeg_color_space == JCS_GRAYSCALE;
+    const int nc = gray ? 1 : 3;
+    if (cinfo->num_components != nc ||
+        (!gray && cinfo->jpeg_color_space != JCS_YCbCr))
+      return false;
+    cinfo->raw_data_out = 1;
+    cinfo->out_color_space = cinfo->jpeg_color_space;
+    jpeg_start_decompress(cinfo);
+    const auto* comp = static_cast<jpeg_component_info*>(cinfo->comp_info);
+    const int max_v = cinfo->max_v_samp_factor;
+    if (comp[0].h_samp_factor != cinfo->max_h_samp_factor ||
+        comp[0].v_samp_factor != max_v || max_v > 4)
+      return false;  // luma must carry the full resolution
+    // One iMCU row a call: v_samp x 8 rows of width_in_blocks x 8 samples a
+    // component, kept in `row` (it outlives a decode error's jump).
+    size_t offs[3], widths[3];
+    size_t total = 0;
+    for (int c = 0; c < nc; ++c) {
+      widths[c] = static_cast<size_t>(comp[c].width_in_blocks) * DCTSIZE;
+      offs[c] = total;
+      total += widths[c] * comp[c].v_samp_factor * DCTSIZE;
+    }
+    row.resize(total);
+    JSAMPROW rows[3][4 * DCTSIZE];
+    JSAMPARRAY arrays[3];
+    for (int c = 0; c < nc; ++c) {
+      for (int r = 0; r < comp[c].v_samp_factor * DCTSIZE; ++r)
+        rows[c][r] = row.data() + offs[c] + r * widths[c];
+      arrays[c] = rows[c];
+    }
+    std::vector<uint8_t>* planes[3] = {&out->y, &out->cb, &out->cr};
+    int pw[3], ph[3];
+    for (int c = 0; c < nc; ++c) {
+      pw[c] = static_cast<int>(comp[c].downsampled_width);
+      ph[c] = static_cast<int>(comp[c].downsampled_height);
+      planes[c]->resize(static_cast<size_t>(pw[c]) * ph[c]);
+    }
+    while (cinfo->output_scanline < cinfo->output_height) {
+      const int imcu = static_cast<int>(cinfo->output_scanline) / (max_v * DCTSIZE);
+      jpeg_read_raw_data(cinfo, arrays, max_v * DCTSIZE);
+      for (int c = 0; c < nc; ++c) {
+        const int n_rows = comp[c].v_samp_factor * DCTSIZE;
+        for (int r = 0; r < n_rows; ++r) {
+          const int y = imcu * n_rows + r;
+          if (y >= ph[c]) break;
+          std::memcpy(planes[c]->data() + static_cast<size_t>(y) * pw[c],
+                      rows[c][r], pw[c]);
+        }
+      }
+    }
+    jpeg_finish_decompress(cinfo);
+    out->w = pw[0];
+    out->h = ph[0];
+    out->cw = gray ? 0 : pw[1];
+    out->ch = gray ? 0 : ph[1];
+    if (gray) {
+      out->cb.clear();
+      out->cr.clear();
+    }
+    return gray || (pw[2] == pw[1] && ph[2] == ph[1]);
+  });
+}
+
 bool jpeg_decode_pixels(const char* path, int w, int h, int channels,
                         uint8_t* out) {
   if (channels != 1 && channels != 3) return false;
@@ -132,8 +199,17 @@ bool jpeg_decode_pixels(const char* path, int w, int h, int channels,
 }
 
 bool jpeg_encode(const char* path, const uint8_t* pixels, int w, int h,
-                 int channels, int quality) {
+                 int channels, int quality, int chroma) {
   if ((channels != 1 && channels != 3) || w <= 0 || h <= 0) return false;
+  // Luma's sampling factors over chroma's 1 x 1.
+  int hs, vs;
+  switch (chroma) {
+    case 420: hs = 2; vs = 2; break;
+    case 422: hs = 2; vs = 1; break;
+    case 440: hs = 1; vs = 2; break;
+    case 444: hs = 1; vs = 1; break;
+    default: return false;
+  }
   FILE* f = std::fopen(path, "wb");
   if (!f) return false;
   jpeg_compress_struct cinfo;
@@ -153,6 +229,11 @@ bool jpeg_encode(const char* path, const uint8_t* pixels, int w, int h,
   cinfo.in_color_space = channels == 3 ? JCS_RGB : JCS_GRAYSCALE;
   jpeg_set_defaults(&cinfo);
   jpeg_set_quality(&cinfo, quality, 1);
+  if (channels == 3) {
+    auto* comp = static_cast<jpeg_component_info*>(cinfo.comp_info);
+    comp[0].h_samp_factor = hs;
+    comp[0].v_samp_factor = vs;
+  }
   jpeg_start_compress(&cinfo, 1);
   while (cinfo.next_scanline < cinfo.image_height) {
     JSAMPROW rp = const_cast<uint8_t*>(pixels) +

@@ -2,13 +2,15 @@
 //
 // The codec runs on the calling thread's current CUDA device (device 0 in
 // a new thread; image_io.cc's batch decode sets its workers' device with
-// jpeg_use_device) and its results come back as host planes, so image_io.cc resamples them as it
-// does libjpeg's.  Decoding to I420 asks for NVJPEG_OUTPUT_YUV: the planes
-// as the file stores them, chroma at its own resolution (half width and
-// height for 4:2:0), which the resample takes straight to the I420 grid
-// without libjpeg's upsampling.  The IDCT is nvJPEG's, so bytes differ from
-// libjpeg's by the JPEG's own rounding; chip_smoke.py holds this route to
-// the pixels it encoded.
+// jpeg_use_device) and its results come back as host planes.  Every colour
+// decode asks for NVJPEG_OUTPUT_YUV, the planes as the file stores them
+// (chroma at its own resolution, half width and height for 4:2:0), and
+// finishes on the host with libjpeg's own steps (jpeg_color.cc): fancy
+// chroma upsampling for the YCbCr route, then libjpeg's fixed-point
+// YCbCr -> RGB for the RGB route.  Only the IDCT is nvJPEG's, so bytes
+// differ from libjpeg's by its rounding alone; chip_smoke.py and
+// tests/test_torch_gpu.py hold this route to libjpeg's bytes of the JPEGs
+// under tests/data/jpeg/.
 //
 // Each decode borrows a slot (a decoder state, a non-blocking stream and a
 // device buffer that only grows) of the current device from a pool that
@@ -156,6 +158,36 @@ bool decode(const std::vector<uint8_t>& data, nvjpegOutputFormat_t fmt,
   return ok;
 }
 
+// The stored planes of a file read into `data` (see jpeg_decode_planes).
+bool decode_planes(const std::vector<uint8_t>& data, const Info& info,
+                   Planes* out) {
+  std::vector<uint8_t> host;
+  const int w = info.widths[0], h = info.heights[0];
+  const size_t n = static_cast<size_t>(w) * h;
+  out->w = w;
+  out->h = h;
+  if (info.gray()) {
+    if (!decode(data, NVJPEG_OUTPUT_Y, {w}, {h}, &host)) return false;
+    out->cw = out->ch = 0;
+    out->y.assign(host.begin(), host.end());
+    out->cb.clear();
+    out->cr.clear();
+    return true;
+  }
+  const int cw = info.widths[1], ch = info.heights[1];
+  if (cw <= 0 || ch <= 0 || info.widths[2] != cw || info.heights[2] != ch)
+    return false;
+  if (!decode(data, NVJPEG_OUTPUT_YUV, {w, cw, cw}, {h, ch, ch}, &host))
+    return false;
+  const size_t nc = static_cast<size_t>(cw) * ch;
+  out->cw = cw;
+  out->ch = ch;
+  out->y.assign(host.begin(), host.begin() + n);
+  out->cb.assign(host.begin() + n, host.begin() + n + nc);
+  out->cr.assign(host.begin() + n + nc, host.end());
+  return true;
+}
+
 }  // namespace
 
 bool jpeg_use_device(int device) {
@@ -171,35 +203,16 @@ bool jpeg_probe(const char* path, int* w, int* h) {
   return true;
 }
 
-bool jpeg_decode_ycc(const char* path, Planes* out) {
-  std::vector<uint8_t> data, host;
+bool jpeg_decode_planes(const char* path, Planes* out) {
+  std::vector<uint8_t> data;
   Info info;
-  if (!read_file(path, &data) || !image_info(data, &info)) return false;
-  const int w = info.widths[0], h = info.heights[0];
-  const size_t n = static_cast<size_t>(w) * h;
-  out->w = w;
-  out->h = h;
-  if (info.gray()) {
-    if (!decode(data, NVJPEG_OUTPUT_Y, {w}, {h}, &host)) return false;
-    out->cw = w;
-    out->ch = h;
-    out->y.assign(host.begin(), host.end());
-    out->cb.assign(n, 128);
-    out->cr.assign(n, 128);
-    return true;
-  }
-  const int cw = info.widths[1], ch = info.heights[1];
-  if (cw <= 0 || ch <= 0 || info.widths[2] != cw || info.heights[2] != ch)
-    return false;
-  if (!decode(data, NVJPEG_OUTPUT_YUV, {w, cw, cw}, {h, ch, ch}, &host))
-    return false;
-  const size_t nc = static_cast<size_t>(cw) * ch;
-  out->cw = cw;
-  out->ch = ch;
-  out->y.assign(host.begin(), host.begin() + n);
-  out->cb.assign(host.begin() + n, host.begin() + n + nc);
-  out->cr.assign(host.begin() + n + nc, host.end());
-  return true;
+  return read_file(path, &data) && image_info(data, &info) &&
+         decode_planes(data, info, out);
+}
+
+bool jpeg_decode_ycc(const char* path, Planes* out) {
+  Planes stored;
+  return jpeg_decode_planes(path, &stored) && upsample_planes(stored, out);
 }
 
 bool jpeg_decode_pixels(const char* path, int w, int h, int channels,
@@ -217,18 +230,28 @@ bool jpeg_decode_pixels(const char* path, int w, int h, int channels,
       for (int c = 0; c < channels; ++c) out[i * channels + c] = host[i];
     return true;
   }
-  if (!decode(data, NVJPEG_OUTPUT_RGBI, {3 * w}, {h}, &host)) return false;
-  std::copy(host.begin(), host.end(), out);
+  Planes stored, full;
+  if (!decode_planes(data, info, &stored) || !upsample_planes(stored, &full))
+    return false;
+  ycc_to_rgb(full.y.data(), full.cb.data(), full.cr.data(), n, out);
   return true;
 }
 
 bool jpeg_encode(const char* path, const uint8_t* pixels, int w, int h,
-                 int channels, int quality) {
+                 int channels, int quality, int chroma) {
   if ((channels != 1 && channels != 3) || w <= 0 || h <= 0 || !handle())
     return false;
   const size_t bytes = static_cast<size_t>(w) * h * channels;
-  const nvjpegChromaSubsampling_t css =
-      channels == 3 ? NVJPEG_CSS_420 : NVJPEG_CSS_GRAY;
+  nvjpegChromaSubsampling_t css = NVJPEG_CSS_GRAY;
+  if (channels == 3) {
+    switch (chroma) {
+      case 420: css = NVJPEG_CSS_420; break;
+      case 422: css = NVJPEG_CSS_422; break;
+      case 440: css = NVJPEG_CSS_440; break;
+      case 444: css = NVJPEG_CSS_444; break;
+      default: return false;
+    }
+  }
   Slot* s = acquire();
   if (!s) return false;
   nvjpegEncoderState_t state = nullptr;

@@ -9,6 +9,7 @@ PyTorch version.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional, Union
 
 import torch
@@ -24,8 +25,48 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
-@contextlib.contextmanager
-def exact_f32_convolutions() -> Iterator[None]:
+class _FlagOff:
+    """A global backend flag held False while any thread is inside one of
+    its blocks, and the setting from before the first of them put back when
+    the last one leaves.  Mesh slots run on several threads at once: a
+    block that put back its own entry value while another thread was still
+    inside would let that thread's work run in TF32."""
+
+    def __init__(self, get, set_):
+        self._get, self._set = get, set_
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._previous = None
+
+    @contextlib.contextmanager
+    def __call__(self) -> Iterator[None]:
+        with self._lock:
+            if self._depth == 0:
+                self._previous = self._get()
+                self._set(False)
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    self._set(self._previous)
+
+
+def _set_cudnn_tf32(v: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = v
+
+
+def _set_matmul_tf32(v: bool) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = v
+
+
+_cudnn_tf32_off = _FlagOff(lambda: torch.backends.cudnn.allow_tf32, _set_cudnn_tf32)
+_matmul_tf32_off = _FlagOff(lambda: torch.backends.cuda.matmul.allow_tf32, _set_matmul_tf32)
+
+
+def exact_f32_convolutions():
     """cuDNN convolutions in full f32 for the duration of the block, and
     the caller's setting back afterwards.
 
@@ -34,16 +75,10 @@ def exact_f32_convolutions() -> Iterator[None]:
     reference computes them in f32.  The port's f32 convolutions (the
     saliency blurs, the f32 patch embedding) run inside this block so that
     they do not depend on the global flag."""
-    previous = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = previous
+    return _cudnn_tf32_off()
 
 
-@contextlib.contextmanager
-def exact_f32_matmuls() -> Iterator[None]:
+def exact_f32_matmuls():
     """cuBLAS f32 matmuls in full f32 (no TF32) for the duration of the
     block, and the caller's setting back afterwards.
 
@@ -51,9 +86,4 @@ def exact_f32_matmuls() -> Iterator[None]:
     reference's; a caller's ``torch.backends.cuda.matmul.allow_tf32 =
     True`` (or ``torch.set_float32_matmul_precision("high")``) would
     otherwise run their batched products with 10 mantissa bits."""
-    previous = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = previous
+    return _matmul_tf32_off()

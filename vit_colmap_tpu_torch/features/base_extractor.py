@@ -69,7 +69,8 @@ class BaseExtractor(ABC):
         raise NotImplementedError
 
     # The ViT extractors' host loop: subclasses that use it have
-    # ``image_batch``, ``extract_batch_async`` and ``_batch_rows``.
+    # ``image_batch`` (or ``batch_size``, the ViT extractor's rounded to
+    # its mesh), ``extract_batch_async`` and ``_batch_rows``.
     def _extract_groups(self, db, groups, camera_model: str,
                         camera_params: Optional[list[float]]) -> None:
         """Each group of :func:`read_rgb_groups` under one camera, its images
@@ -82,8 +83,9 @@ class BaseExtractor(ABC):
             th, tw = patch_grid_size(oh, ow)
             cam_id = add_group_camera(db, camera_model, camera_params, ow, oh)
             pending = []
-            for start in range(0, len(items), self.image_batch):
-                chunk = items[start : start + self.image_batch]
+            step = getattr(self, "batch_size", self.image_batch)
+            for start in range(0, len(items), step):
+                chunk = items[start : start + step]
                 batch = np.stack([resize_area(rgb, tw, th) for _, rgb in chunk])
                 pending.append(([f.name for f, _ in chunk], self.extract_batch_async(batch)))
             self._write_batches(db, cam_id, pending, (tw, th), (ow, oh))

@@ -30,6 +30,17 @@ reference's cv2 path.
 the port's trainer run with ``--train-backbone`` (its fine-tuned backbone;
 a heads-only directory raises).
 
+Devices (``parallel/mesh.py``): images are data-parallel over a mesh's
+data slots as in the JAX package: every visible card when there are
+several and the device names no index (``"cuda"``, the default), a
+``mesh=`` of slots, or else one slot on the device.  A batch rounds up to
+a multiple of the slots with zero images whose outputs are dropped; each
+slot runs the backbone (kernel 1), detection and the PCA on its share with
+its own replica, on its own thread (one slot inline); outputs are gathered
+in image order on the first slot's device (``self.device``), where the PCA
+is fitted and the database rows and ``device_cache`` come from.
+``device="cuda:0"`` pins one card.
+
 ``set_pca`` installs a projection; ``device_extract_pipelined`` (the device
 rate: back-to-back extractions of one staged batch, one synchronization)
 and ``device_extract_looped`` (a device-side checksum over perturbed
@@ -77,6 +88,15 @@ from vit_colmap_tpu_torch.ops.transfer import (
     pack_yuv420_full,
     unpack_yuv420,
     unpack_yuv420_c4,
+)
+from vit_colmap_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather,
+    pad_to_multiple,
+    replicate_module,
+    resolve_mesh,
+    run_slots,
+    shard_batch,
 )
 from vit_colmap_tpu_torch.utils.image_io import imread_rgb
 
@@ -146,10 +166,17 @@ class ViTExtractor(BaseExtractor):
         attn_impl: str = "fixedmax_fused",
         emit_float_desc: bool = False,
         device=None,
+        mesh: Optional[Mesh] = None,
     ):
         if transfer_format not in ("rgb", "yuv420", "yuv420c4"):
             raise ValueError(f"unknown transfer_format {transfer_format!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else resolve_mesh(resolve_device(device))
+        self.device = self.mesh.data_devices[0]
+        # Data slots the batch is split over (the JAX package's _ndev).
+        self._ndev = self.mesh.shape["data"]
+        logger.info("ViTExtractor: %d data slots on %s", self._ndev,
+                    [str(d) for d in self.mesh.data_devices])
+        self._replicas: Optional[list] = None
         self.backbone_name = backbone
         self.max_keypoints = max_keypoints
         self.descriptor_dim = descriptor_dim
@@ -202,19 +229,49 @@ class ViTExtractor(BaseExtractor):
             return pack_batch_yuv420_c4(np.asarray(images_u8), full_range=self._yuv_full_range)
         return images_u8
 
+    @property
+    def batch_size(self) -> int:
+        """Images a batch of ``extract()``: ``image_batch`` rounded up to a
+        multiple of the data slots, so every slot gets an image."""
+        return pad_to_multiple(self.image_batch, self._ndev)
+
+    def _over_slots(self, body, batch):
+        """``body(model, share, pca)`` on each data slot's share of ``batch``
+        (padded with zeros to a multiple of the slots), the slot's backbone
+        replica and PCA on its device; the outputs gathered in batch order on
+        ``self.device``, the padding dropped.  One slot runs inline on the
+        extractor's own model."""
+        batch = torch.as_tensor(batch)
+        b0 = batch.shape[0]
+        pad = (-b0) % self._ndev
+        if pad:
+            batch = torch.cat([batch, batch.new_zeros((pad, *batch.shape[1:]))])
+        devices = self.mesh.data_devices
+        if self._replicas is None:
+            self._replicas = replicate_module(self.model, devices)
+        pcas = [None if self._pca is None else tuple(t.to(d) for t in self._pca)
+                for d in devices]
+        outs = run_slots(lambda i, share: body(self._replicas[i], share, pcas[i]), devices,
+                         shard_batch(batch, self.mesh))
+        out = gather(outs, self.device)
+        return out[:b0] if isinstance(out, torch.Tensor) else tuple(t[:b0] for t in out)
+
     @torch.no_grad()
     def dense_features(self, wire) -> torch.Tensor:
         """A batch in ``transfer_format`` (for "rgb" (B, H, W, 3) uint8; H, W
         multiples of 14) -> (B, gh, gw, C) f32; YUV wires are unpacked to
-        RGB on the device first."""
+        RGB on each slot's device first."""
         self._forward_built = True
-        wire = torch.as_tensor(wire).to(self.device)
+        return self._over_slots(lambda model, share, _pca: self._dense(model, share), wire)
+
+    @torch.no_grad()
+    def _dense(self, model, wire: torch.Tensor) -> torch.Tensor:
         if self.transfer_format == "yuv420":
             wire = unpack_yuv420(wire, full_range=self._yuv_full_range)
         elif self.transfer_format == "yuv420c4":
             wire = unpack_yuv420_c4(wire, full_range=self._yuv_full_range)
         x = preprocess(wire)
-        out = self.model(x)
+        out = model(x)
         gh, gw = out["grid"]
         return out["x_norm_patchtokens"].reshape(x.shape[0], gh, gw, -1)
 
@@ -248,13 +305,18 @@ class ViTExtractor(BaseExtractor):
         desc[, f32 desc]); the host is not synchronized.  ``packed=True``
         means ``images_u8`` is already in ``transfer_format`` (for example
         from ``to_wire``); otherwise it is RGB and is packed here."""
-        fmap = self.dense_features(images_u8 if packed else self.to_wire(images_u8))
-        if self._pca is None:
-            flat = fmap.float().reshape(-1, fmap.shape[-1])
-            self._pca = fit_pca(flat, self.descriptor_dim)
-            logger.info("Fitted PCA %d->%d on %d tokens", fmap.shape[-1],
-                        self.descriptor_dim, flat.shape[0])
-        return self._detect(fmap, *self._pca)
+        wire = images_u8 if packed else self.to_wire(images_u8)
+        if self._pca is not None:
+            # The fused body on every slot: backbone, detection and PCA.
+            self._forward_built = True
+            return self._over_slots(
+                lambda model, share, pca: self._detect(self._dense(model, share), *pca), wire)
+        fmap = self.dense_features(wire)
+        flat = fmap.float().reshape(-1, fmap.shape[-1])
+        self._pca = fit_pca(flat, self.descriptor_dim)
+        logger.info("Fitted PCA %d->%d on %d tokens", fmap.shape[-1],
+                    self.descriptor_dim, flat.shape[0])
+        return self._over_slots(lambda _m, share, pca: self._detect(share, *pca), fmap)
 
     def _require_pca(self) -> None:
         if self._pca is None:
@@ -420,7 +482,7 @@ class ViTExtractor(BaseExtractor):
     def _extract_native(self, db, groups, native_io, camera_model: str,
                         camera_params: Optional[list[float]]) -> None:
         """Each group under one camera, decoded and resized in C++ straight
-        into I420 batches of ``image_batch`` slots (2 threads), all launched
+        into I420 batches of ``batch_size`` slots (2 threads), all launched
         before their rows are written; a slot whose decode failed is
         skipped.  nvJPEG decodes on the extractor's card."""
         card = None
@@ -431,10 +493,10 @@ class ViTExtractor(BaseExtractor):
             th, tw = patch_grid_size(oh, ow)
             cam_id = add_group_camera(db, camera_model, camera_params, ow, oh)
             pending = []
-            for start in range(0, len(gfiles), self.image_batch):
-                chunk = gfiles[start : start + self.image_batch]
+            for start in range(0, len(gfiles), self.batch_size):
+                chunk = gfiles[start : start + self.batch_size]
                 packed, ok = native_io.decode_batch_i420(
-                    chunk, tw, th, pad_to=self.image_batch, n_threads=2, device=card)
+                    chunk, tw, th, pad_to=self.batch_size, n_threads=2, device=card)
                 names = []
                 for f, good in zip(chunk, ok):
                     if not good:

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from vit_colmap_tpu_torch.kernels import launches
+from vit_colmap_tpu_torch.kernels import count_launch
 
 LOG2E = math.log2(math.e)
 CLAMP = 100.0
@@ -169,7 +169,7 @@ def _launch(q, k, v, out, sm_scale: float, name: str) -> torch.Tensor:
             DTYPE_BYTES[q.dtype], stream,
         )
     check(err, name)
-    launches[name] += 1
+    count_launch(name)
     if target is not out:
         out.copy_(target[..., :d])
     return out

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -149,15 +150,24 @@ def library_path() -> Path:
     return build(out_dir)
 
 
+_library_lock = threading.Lock()
+
+
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The kernel library, bound with ctypes once per process."""
+def _bound_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built (or loaded) and bound with ctypes once per
+    process; mesh slots that ask at once share one build."""
+    with _library_lock:
+        return _bound_library()
 
 
 def check(err: int, name: str) -> None:

@@ -18,7 +18,9 @@ package's ``native/build.sh`` does): ``libsqlite3.so.0`` for the writer;
 ``libz.so.1`` (PNG) and a JPEG codec for the decoder: ``libjpeg.so.62``
 where it exists (``csrc/host/jpeg_libjpeg.cc``), otherwise nvJPEG from the
 CUDA toolkit (``libnvjpeg.so.12`` and ``libcudart.so.12``, with the
-toolkit's ``nvjpeg.h``; ``csrc/host/jpeg_nvjpeg.cc``).  Where ``g++`` or a
+toolkit's ``nvjpeg.h``; ``csrc/host/jpeg_nvjpeg.cc``), which finishes its
+planes with libjpeg's upsampling and colour conversion
+(``csrc/host/jpeg_color.cc``, built with either codec).  Where ``g++`` or a
 runtime library is absent, :func:`load` raises :class:`Unavailable` with
 the reason; the bindings then return ``None`` and their callers fall back
 to the Python paths.
@@ -115,10 +117,11 @@ def sources_and_flags(name: str) -> tuple[list[Path], list[str]]:
     if name == "db_writer":
         return [HOST_DIR / "db_writer.cc"], _link(["libsqlite3.so.0"])
     if name == "image_io":
+        common = [HOST_DIR / "image_io.cc", HOST_DIR / "jpeg_color.cc"]
         if jpeg_codec() == "libjpeg":
-            return ([HOST_DIR / "image_io.cc", HOST_DIR / "jpeg_libjpeg.cc"],
+            return (common + [HOST_DIR / "jpeg_libjpeg.cc"],
                     _link(["libz.so.1", "libjpeg.so.62"]))
-        return ([HOST_DIR / "image_io.cc", HOST_DIR / "jpeg_nvjpeg.cc"],
+        return (common + [HOST_DIR / "jpeg_nvjpeg.cc"],
                 [f"-I{cuda_home() / 'include'}"]
                 + _link(["libz.so.1", "libnvjpeg.so.12", "libcudart.so.12"]))
     raise ValueError(f"unknown host library {name!r}")

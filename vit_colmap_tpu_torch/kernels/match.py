@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from vit_colmap_tpu_torch.kernels import launches
+from vit_colmap_tpu_torch.kernels import count_launch
 
 WIDTH_STEP = 128  # the kernels take descriptor widths that are multiples of this
 TILE_N = 128  # row tile of kernel 2's column partials
@@ -169,7 +169,7 @@ def _run(name: str, *args) -> None:
         ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
         err = getattr(library(), f"{name}_launch")(*ptrs, stream)
     check(err, name)
-    launches[name] += 1
+    count_launch(name)
 
 
 def match_topk2_colmax(

@@ -15,6 +15,16 @@ Counterpart of ``vit_colmap_tpu/pipeline/match.py``:
    ``two_view_geometries`` (config enum, F/E/H and relative pose) for the
    pairs that reach ``min_num_inliers`` and are not DEGENERATE.
 
+Several devices (``parallel/mesh.py``; every visible card when there is
+more than one and the device names no index, or a ``mesh=`` of slots): the
+pair batch rounds up to a multiple of the data slots, each slot matches its
+contiguous slice of each batch's pairs on its own thread, and the outputs
+are concatenated in pair order on the first slot's device.  Descriptors are
+replicated on every slot, or with ``MatchingConfig.shard_descriptors`` (the
+scale-out memory mode) padded to a multiple of the slots over images and
+sharded, each slot holding only its share and gathering the full set for
+each batch.  Verification runs on the first slot.
+
 The reference sends a verification batch's correspondences flat and
 scatters them on the TPU (a wire-transfer device); here the padded
 ``(pairs, k_max)`` buffers are built on the host and copied once.
@@ -41,6 +51,15 @@ from vit_colmap_tpu_torch.ops.matching import (
     unpack_matches,
 )
 from vit_colmap_tpu_torch.ops.ransac import draw_uniforms, estimate_two_view_batched
+from vit_colmap_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather,
+    pad_to_multiple,
+    replicate,
+    resolve_mesh,
+    run_slots,
+    shard_batch,
+)
 from vit_colmap_tpu_torch.sfm.geometry import undistort_points
 from vit_colmap_tpu_torch.utils.config import MatchingConfig
 
@@ -86,6 +105,65 @@ def batch_generator(seed: int, start: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
+def _build_sharded_pallas_matcher(mesh: Mesh, cross_check: bool, use_pallas=True):
+    """The pair matcher over the mesh with replicated descriptors:
+    ``(desc, valid, idx1, idx2, max_ratio, max_distance) -> (P, N)`` on the
+    first slot's device.  ``desc`` / ``valid`` are (images, N, D) / (images,
+    N) tensors or lists of one replica a slot (:func:`parallel.mesh.
+    replicate`); each slot gathers its pair slice from its replica and runs
+    the matcher (kernel 2 for widths that are multiples of 128)."""
+    matcher = get_pair_matcher(use_pallas)
+    devices = mesh.data_devices
+
+    def run(desc, valid, idx1, idx2, max_ratio=0.8, max_distance=0.7):
+        if isinstance(desc, torch.Tensor):
+            desc, valid = replicate(desc, mesh), replicate(valid, mesh)
+
+        def body(i, i1, i2):
+            return matcher(desc[i][i1], desc[i][i2], valid[i][i1], valid[i][i2],
+                           max_ratio, max_distance, cross_check)
+
+        outs = run_slots(body, devices, shard_batch(idx1, mesh), shard_batch(idx2, mesh))
+        return gather(outs, devices[0])
+
+    return run
+
+
+def _build_desc_sharded_matcher(mesh: Mesh, cross_check: bool, use_pallas=True):
+    """The pair matcher for descriptors sharded over images (the scale-out
+    memory mode, ``MatchingConfig.shard_descriptors``): ``desc`` / ``valid``
+    are tensors whose image count divides over the slots, or lists of one
+    contiguous image shard a slot (:func:`parallel.mesh.shard_batch`).  For
+    each batch every slot gathers the full set from the others' shards (a
+    transient copy between devices), takes its pair slice and matches it;
+    outputs in pair order on the first slot's device."""
+    matcher = get_pair_matcher(use_pallas)
+    devices = mesh.data_devices
+
+    def run(desc, valid, idx1, idx2, max_ratio=0.8, max_distance=0.7):
+        if isinstance(desc, torch.Tensor):
+            desc, valid = shard_batch(desc, mesh), shard_batch(valid, mesh)
+
+        def body(i, i1, i2):
+            d, v = gather(desc, devices[i]), gather(valid, devices[i])
+            return matcher(d[i1], d[i2], v[i1], v[i2], max_ratio, max_distance, cross_check)
+
+        outs = run_slots(body, devices, shard_batch(idx1, mesh), shard_batch(idx2, mesh))
+        return gather(outs, devices[0])
+
+    return run
+
+
+def _own_shards(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+    """:func:`shard_batch` with each share a tensor of its own: over several
+    slots a share left on ``x``'s device is copied out of it, so that no
+    slot keeps the whole of ``x`` alive once the caller drops it."""
+    shards = shard_batch(x, mesh)
+    if len(shards) == 1:
+        return shards
+    return [s.clone() if s.device == x.device else s for s in shards]
+
+
 @dataclass
 class MatchStats:
     num_pairs: int = 0
@@ -106,6 +184,7 @@ def match_exhaustive(
     seed: int = 0,
     device_descriptors: Optional[dict] = None,
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> MatchStats:
     """Match every image pair in the database and write ``matches``, then
     (``config.do_verification``) verify them and write
@@ -115,11 +194,18 @@ def match_exhaustive(
     count)}`` from an extractor's ``device_cache``; when it covers every
     image, descriptors are taken from the device instead of the database.
     ``seed`` seeds verification's sampling (see :func:`batch_generator`).
+    ``mesh``: the data slots pair batches are split over (default: every
+    visible card when there are several and ``device`` names no index, else
+    one slot on ``device``).
     """
     config = config or MatchingConfig()
-    if config.shard_descriptors:
-        raise NotImplementedError("shard_descriptors (multi-GPU) is not ported yet")
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = resolve_mesh(resolve_device(device))
+    dev = mesh.data_devices[0]
+    ndev = mesh.shape["data"]
+    logger.info("Matching over %d data slots on %s%s", ndev,
+                [str(d) for d in mesh.data_devices],
+                " (descriptors sharded)" if config.shard_descriptors else "")
     stats = MatchStats()
 
     db = ColmapDatabase(db_path)
@@ -175,17 +261,26 @@ def match_exhaustive(
 
     pairs = [(i, j) for i in range(n_img) for j in range(i + 1, n_img)]
     stats.num_pairs = len(pairs)
-    matcher = get_pair_matcher(config.use_pallas)
+    P = pad_to_multiple(config.pair_batch, ndev)  # every slot gets pairs
+    if config.shard_descriptors:
+        pad_img = (-n_img) % ndev  # zero images, never indexed
+        desc = torch.cat([desc, desc.new_zeros((pad_img, *desc.shape[1:]))])
+        valid = torch.cat([valid, valid.new_zeros((pad_img, valid.shape[1]))])
+        matcher = _build_desc_sharded_matcher(mesh, config.cross_check, config.use_pallas)
+        desc, valid = _own_shards(desc, mesh), _own_shards(valid, mesh)
+    else:
+        matcher = _build_sharded_pallas_matcher(mesh, config.cross_check, config.use_pallas)
+        desc, valid = replicate(desc, mesh), replicate(valid, mesh)
     all_matches: dict[tuple[int, int], np.ndarray] = {}
     pending = []
-    for start in range(0, len(pairs), config.pair_batch):
-        chunk = pairs[start : start + config.pair_batch]
-        i1 = torch.tensor([c[0] for c in chunk], device=dev)
-        i2 = torch.tensor([c[1] for c in chunk], device=dev)
-        out = matcher(
-            desc[i1], desc[i2], valid[i1], valid[i2],
-            config.max_ratio, config.max_distance, config.cross_check,
-        )
+    for start in range(0, len(pairs), P):
+        chunk = pairs[start : start + P]
+        # The last chunk padded to a multiple of the slots with pair (0, 0),
+        # whose rows are dropped.
+        pad = [0] * (pad_to_multiple(len(chunk), ndev) - len(chunk))
+        i1 = torch.tensor([c[0] for c in chunk] + pad)
+        i2 = torch.tensor([c[1] for c in chunk] + pad)
+        out = matcher(desc, valid, i1, i2, config.max_ratio, config.max_distance)[: len(chunk)]
         pending.append((chunk, compact_matches_device(out)))
     for chunk, (m_counts, packed) in pending:
         m_counts = m_counts.cpu().numpy()

@@ -12,6 +12,10 @@ writes a ``torch.profiler`` trace of the run.  Extractors: ``vit``,
 ``trainable_vit``, ``sift`` (and its alias ``colmap_sift``), ``hybrid``
 (OpenCV's SIFT detector, ``ops/cv_detectors.py``, with ViT descriptors) and
 ``dummy``; any other name raises ``ValueError`` before a stage runs.
+With more than one card visible and ``--device`` naming no index (the
+default), the ViT extractor and the matcher run over every card
+(``parallel/mesh.py``); ``--device cuda:0`` pins one, and
+``--shard-descriptors`` shards the matcher's descriptors over the cards.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Optional
 
 from vit_colmap_tpu_torch.database import ColmapDatabase
 from vit_colmap_tpu_torch.device import resolve_device
+from vit_colmap_tpu_torch.parallel.mesh import resolve_mesh
 from vit_colmap_tpu_torch.utils.config import Config
 from vit_colmap_tpu_torch.utils.export import export_metrics
 from vit_colmap_tpu_torch.utils.metrics import MetricsExtractor, MetricsResult
@@ -120,7 +125,7 @@ class Pipeline:
         image_dir, output_dir, db_path = Path(image_dir), Path(output_dir), Path(db_path)
         output_dir.mkdir(parents=True, exist_ok=True)
         db_path.parent.mkdir(parents=True, exist_ok=True)
-        logger.info("Device: %s", self.device)
+        logger.info("Devices: %s", [str(d) for d in resolve_mesh(self.device).data_devices])
         logger.info("\n%s", self.config.summary())
         with trace():  # a torch.profiler trace when VIT_COLMAP_PROFILE_DIR is set
             report = self._run_stages(image_dir, output_dir, db_path, dataset, scene,

@@ -12,8 +12,11 @@ disk.  ``--synthetic-only`` trains on generated pairs without a dataset,
 and ``--train-backbone`` fine-tunes the backbone with the heads (the dense
 token loss joins the total).
 
-Port differences: one device (``--device``, the card unless ``cpu`` is
-given); checkpoints are directories holding ``state.pt``
+Devices: as the JAX trainer, the first ``gcd(batch, devices)`` of the
+visible cards (``training/data_parallel.data_slots``), the batch split over
+them and the loss over the global batch (``training/data_parallel.py``);
+``--device cuda:0`` pins one card and ``--device cpu`` runs on the CPU.
+Port differences: checkpoints are directories holding ``state.pt``
 (``training/checkpoint.py``), not orbax; ``--backbone-weights`` takes a
 torch DINOv2 ``.pth`` as before.  Each ``train`` line of ``scalars.jsonl``
 also carries ``step_s``, the step's seconds on the host clock from its
@@ -224,7 +227,9 @@ def main(argv: Optional[list[str]] = None) -> None:
         count_parameters,
         reset_heads,
     )
+    from vit_colmap_tpu_torch.parallel.mesh import resolve_mesh
     from vit_colmap_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+    from vit_colmap_tpu_torch.training.data_parallel import data_slots
     from vit_colmap_tpu_torch.training.train_step import (
         init_train_state,
         make_finetune_optimizer,
@@ -232,8 +237,13 @@ def main(argv: Optional[list[str]] = None) -> None:
         make_train_step,
     )
 
-    device = resolve_device(args.device)
-    logger.info("Device: %s", device)
+    available = resolve_mesh(resolve_device(args.device)).data_devices
+    # The data axis must divide the batch: the largest compatible subset of
+    # the devices (batch 2 over 8 cards -> 2).
+    devices = data_slots(args.batch_size, available)
+    device = devices[0]
+    logger.info("Devices: %d available, using %d (mesh %s)", len(available), len(devices),
+                {"data": len(devices), "model": 1})
 
     # ----------------------------------------------------------------- data
     if args.synthetic_only or args.data_dir is None:
@@ -337,6 +347,7 @@ def main(argv: Optional[list[str]] = None) -> None:
         heads,
         optimizer,
         train_backbone=args.train_backbone,
+        devices=devices,
         loss_kwargs=dict(
             lambda_det=args.lambda_det,
             lambda_desc=args.lambda_desc,

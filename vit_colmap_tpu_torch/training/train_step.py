@@ -17,6 +17,11 @@ semantics held by hand:
   backbone at ``lr * backbone_lr_scale`` (each its own schedule: the
   schedule is proportional to its peak), under one global-norm clip.
 
+Data parallelism (``devices``): the forward passes of the backbone and
+the heads run over the slots (``training/data_parallel.SlotForward``) and
+the rest of the step over the global batch on the first slot, so the loss
+is the one-device loss.
+
 Modules hold the parameters: :func:`make_optimizer` returns a recipe whose
 ``init`` builds the optimizer over a module, as an optax transformation's
 ``init`` builds its state over a pytree.
@@ -33,6 +38,7 @@ import torch.nn as nn
 
 from vit_colmap_tpu_torch.dataloader.training_batch import process_batch
 from vit_colmap_tpu_torch.losses.feature_losses import total_loss
+from vit_colmap_tpu_torch.training.data_parallel import SlotForward
 
 
 def warmup_cosine_decay(step: int, init_value: float, peak_value: float, warmup_steps: int,
@@ -153,12 +159,17 @@ def make_train_step(
     loss_kwargs: Optional[dict] = None,
     batch_kwargs: Optional[dict] = None,
     train_backbone: bool = False,
+    devices=None,
 ):
     """(step, eval_step): ``step(state, batch, generator) -> (state,
     metrics)`` and ``eval_step(state, batch, generator) -> metrics``, the
     metrics detached tensors (the total loss and every component).  With
     ``train_backbone`` the dense token loss joins the total with weight
-    ``loss_kwargs["lambda_token"]`` (default 1)."""
+    ``loss_kwargs["lambda_token"]`` (default 1).  ``devices``: the data
+    slots their forward passes are split over, the batch's device first,
+    where ``backbone`` and ``heads`` live (default: that device alone)."""
+    devices = list(devices or [next(heads.parameters()).device])
+    backbone, heads = SlotForward(backbone, devices), SlotForward(heads, devices)
     loss_kwargs = dict(loss_kwargs or {})
     batch_kwargs = dict(batch_kwargs or {})
     lambda_token = loss_kwargs.pop("lambda_token", 1.0)

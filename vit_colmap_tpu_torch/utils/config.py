@@ -1,9 +1,11 @@
 """Pipeline configuration: the port's own copy of ``vit_colmap_tpu/utils/
 config.py``, with the same dataclasses, fields and defaults, so a config
-tree and its CLI flags mean the same thing in both packages.  Fields that
-drive code the port has not ported yet (the TPU wire formats) are kept so
-that the two trees stay interchangeable; the code that reads them raises
-where the port has no counterpart.
+tree and its CLI flags mean the same thing in both packages.  Every field
+the JAX package reads drives the port's code too (none raises), except two
+the port accepts without effect: ``MatchingConfig.verification_prewarm``
+(nothing to precompile) and ``ReconstructionConfig.ba_coarse_buckets`` (no
+shape buckets).  ``ExtractorConfig.dtype`` and ``CameraConfig.width`` /
+``height`` are read by neither package.
 """
 
 from __future__ import annotations

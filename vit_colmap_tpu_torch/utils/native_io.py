@@ -11,7 +11,11 @@ Three entry points the JAX binding lacks, because the JAX package reaches
 them through ``cv2``: :func:`decode_jpeg_rgb` (``cv2.imread`` in colour,
 then BGR -> RGB), :func:`decode_jpeg_gray` (``cv2.IMREAD_GRAYSCALE``, the Y
 plane) and :func:`encode_jpeg` (to write test images, where no ``cv2`` is
-installed).  None of them applies EXIF orientation
+installed).  Four more expose the JPEG decode's steps, so that the nvJPEG
+route can be held to libjpeg's: :func:`decode_jpeg_ycc` (full-resolution
+YCbCr), :func:`decode_jpeg_planes` (the stored planes),
+:func:`upsample_ycc` and :func:`ycc_to_rgb` (libjpeg's upsampling and
+colour conversion, ``csrc/host/jpeg_color.cc``).  None of them applies EXIF orientation
 (``utils/image_io.imread_rgb`` does, as ``cv2.imread`` does).
 
 The library is built with ``g++`` at first use (``kernels/host_build.py``);
@@ -53,8 +57,15 @@ _SIGNATURES = {
         _U8_P, _INT_P, ctypes.c_int, ctypes.c_int]),
     "vc_decode_jpeg_pixels": (ctypes.c_int, [
         ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8_P]),
+    "vc_decode_jpeg_ycc": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, _U8_P]),
+    "vc_decode_jpeg_planes": (ctypes.c_int, [
+        ctypes.c_char_p, _INT_P, _U8_P, _U8_P, _U8_P, ctypes.c_longlong]),
+    "vc_upsample_ycc": (ctypes.c_int, [
+        _U8_P, _U8_P, _U8_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8_P]),
+    "vc_ycc_to_rgb": (ctypes.c_int, [_U8_P, _U8_P, _U8_P, ctypes.c_longlong, _U8_P]),
     "vc_encode_jpeg": (ctypes.c_int, [
-        ctypes.c_char_p, _U8_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+        ctypes.c_char_p, _U8_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int]),
 }
 
 
@@ -159,18 +170,88 @@ def decode_jpeg_gray(path) -> Optional[np.ndarray]:
     return None if out is None else out[..., 0]
 
 
-def encode_jpeg(path, pixels: np.ndarray, quality: int = 95) -> bool:
-    """Write (H, W, 3) RGB or (H, W) gray uint8 as a baseline JPEG (4:2:0
-    chroma for colour); False when the library is unavailable."""
+def _u8(a: np.ndarray):
+    return a.ctypes.data_as(_U8_P)
+
+
+def decode_jpeg_ycc(path) -> Optional[np.ndarray]:
+    """(H, W, 3) uint8 full-range YCbCr of a JPEG file, chroma upsampled
+    to full resolution: the planes the I420 route resamples (libjpeg's
+    decode, or nvJPEG's planes finished by libjpeg's upsampling); None
+    when the library is unavailable."""
+    lib = load_native()
+    if lib is None:
+        return None
+    w, h = probe_size(path) or (0, 0)
+    out = np.empty((h, w, 3), np.uint8)
+    if w == 0 or lib.vc_decode_jpeg_ycc(str(path).encode(), w, h, _u8(out)):
+        raise ValueError(f"{path}: JPEG decode failed")
+    return out
+
+
+def decode_jpeg_planes(path) -> Optional[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """The planes as the JPEG stores them, after the codec's IDCT: (H, W)
+    luma and (ch, cw) Cb and Cr at their own sampling (empty for a gray
+    file); None when the library is unavailable."""
+    lib = load_native()
+    if lib is None:
+        return None
+    w, h = probe_size(path) or (0, 0)
+    cap = w * h
+    y, cb, cr = (np.empty(cap, np.uint8) for _ in range(3))
+    dims = np.zeros(4, np.int32)
+    if cap == 0 or lib.vc_decode_jpeg_planes(str(path).encode(),
+                                              dims.ctypes.data_as(_INT_P), _u8(y), _u8(cb),
+                                              _u8(cr), cap):
+        raise ValueError(f"{path}: JPEG decode failed")
+    w, h, cw, ch = (int(v) for v in dims)
+    return (y[: w * h].reshape(h, w), cb[: cw * ch].reshape(ch, cw),
+            cr[: cw * ch].reshape(ch, cw))
+
+
+def upsample_ycc(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """Stored planes (:func:`decode_jpeg_planes`) -> (H, W, 3) YCbCr by
+    libjpeg's fancy upsampling, on the host (``csrc/host/jpeg_color.cc``)."""
+    lib = load_native()
+    if lib is None:
+        raise RuntimeError("the native image library is unavailable")
+    y, cb, cr = (np.ascontiguousarray(a, np.uint8) for a in (y, cb, cr))
+    h, w = y.shape
+    ch, cw = cb.shape
+    out = np.empty((h, w, 3), np.uint8)
+    if lib.vc_upsample_ycc(_u8(y), _u8(cb), _u8(cr), w, h, cw, ch, _u8(out)):
+        raise ValueError(f"no upsampling takes chroma {cw}x{ch} to {w}x{h}")
+    return out
+
+
+def ycc_to_rgb(ycc: np.ndarray) -> np.ndarray:
+    """(..., 3) YCbCr -> RGB by libjpeg's fixed-point conversion, on the
+    host (``csrc/host/jpeg_color.cc``)."""
+    lib = load_native()
+    if lib is None:
+        raise RuntimeError("the native image library is unavailable")
+    planes = [np.ascontiguousarray(ycc[..., c], np.uint8) for c in range(3)]
+    out = np.empty(ycc.shape, np.uint8)
+    lib.vc_ycc_to_rgb(*(_u8(p) for p in planes), planes[0].size, _u8(out))
+    return out
+
+
+CHROMA = (420, 422, 440, 444)
+
+
+def encode_jpeg(path, pixels: np.ndarray, quality: int = 95, chroma: int = 420) -> bool:
+    """Write (H, W, 3) RGB or (H, W) gray uint8 as a baseline JPEG (colour
+    with chroma sampling ``chroma``: 420, 422, 440 or 444); False when the
+    library is unavailable."""
     lib = load_native()
     if lib is None:
         return False
     img = np.ascontiguousarray(pixels, np.uint8)
     channels = 1 if img.ndim == 2 else img.shape[2]
-    if channels not in (1, 3) or not 1 <= quality <= 100:
-        raise ValueError(f"encode_jpeg takes gray or RGB at quality 1-100, got "
-                         f"{img.shape} at {quality}")
+    if channels not in (1, 3) or not 1 <= quality <= 100 or chroma not in CHROMA:
+        raise ValueError(f"encode_jpeg takes gray or RGB at quality 1-100 and chroma "
+                         f"{CHROMA}, got {img.shape} at {quality}, {chroma}")
     if lib.vc_encode_jpeg(str(path).encode(), img.ctypes.data_as(_U8_P),
-                          img.shape[1], img.shape[0], channels, int(quality)):
+                          img.shape[1], img.shape[0], channels, int(quality), int(chroma)):
         raise OSError(f"{path}: JPEG encode failed")
     return True
