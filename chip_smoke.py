@@ -167,13 +167,29 @@ Phases, one flushed line each with elapsed seconds:
    one over NCCL, ``is_primary``, ``local_image_slice`` and one
    ``all_gather`` of a card tensor.  The native-io phase also holds the
    JPEG route to libjpeg's bytes of the committed ``tests/data/jpeg/``
-   fixtures, per plane (``NVJPEG_BOUNDS``).
+   fixtures, per plane (``NVJPEG_BOUNDS``);
+9. eval: the evaluation entry points with the slice's random weights, at
+   their defaults (480 x 640, ViT-B/14, 2,048 keypoints) on a synthetic
+   HPatches tree cut to one illumination and one viewpoint sequence of 4
+   images (6 pairs): (a) ``scripts/torch_eval_hpatches.py``'s evaluation of
+   sift, vit, trainable_vit and hybrid (kernel 1 in every layer of each
+   unique image, kernel 2 once a pair), every pair's kernel-2 matches
+   against plain ``match_pair`` on the card index for index, and the vit
+   row against the CPU's on 2 pairs (``EVAL_CPU_*``); (b)
+   ``scripts/torch_quality_bakeoff.py --extractors sift,vit,trainable_vit
+   --train`` (1 epoch of 4 steps at batch 2, 8 rendered views): every row in
+   QUALITY.json and QUALITY.md, the trained row loaded from the checkpoint
+   it trained; (c) its reconstruction rows exported and compared
+   (``torch_compare_metrics.py``) and aggregated
+   (``torch_aggregate_results.py``), each report naming every row; the
+   phase within ``EVAL_BUDGET_S``.
 
 Every path (the main one, each of 5a-5d, calibrated verification, the
 mapper, SIFT, the 50-view scene, the wire, the trainable path, vitg14,
 registers, int8, the hybrid, each serve job, the device loops, each
-native-io run, the train path's Pipeline.run and each run of the parallel
-phase) is driven with the kernels'
+native-io run, the train path's Pipeline.run, each run of the parallel
+phase, each extractor of the evaluation and the bake-off) is driven with
+the kernels'
 launch counts set to 0 just before it and read just after; each kernel
 must have launched on its path, and the kernels it replaces must not have
 (verification, the mapper and SIFT launch none of the five).
@@ -4547,6 +4563,284 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
     return out, rates, split, f32_ms, matcher
 
 
+# The eval phase: the evaluation entry points (scripts/torch_eval_hpatches.py,
+# torch_quality_bakeoff.py, torch_compare_metrics.py, torch_aggregate_results.py)
+# on the card, at their defaults (480 x 640, ViT-B/14, 2,048 keypoints,
+# reference_only pairs) on a synthetic tree cut to one illumination and one
+# viewpoint sequence of EVAL_IMAGES images (6 pairs).  The vit row on the
+# card is held against the same row on the CPU on EVAL_CPU_PAIRS pairs: equal
+# keypoint counts (every valid token of the grid is a keypoint on both), and
+# average matches within EVAL_CPU_MATCHES (relative, or 2 matches) and MMA@3
+# within EVAL_CPU_MMA: the backbone runs in bf16 on both, the card through
+# kernel 1 and the CPU through PyTorch's plain attention, which round
+# differently and move a few keypoints and descriptor bytes; the same bounds
+# hold the port's evaluation against the JAX package's in
+# tests/test_torch_eval_hpatches.py.  The bake-off trains 1 epoch of
+# EVAL_TRAIN_STEPS steps at batch EVAL_TRAIN_BATCH and reconstructs
+# EVAL_RECON_CAMS rendered views.
+EVAL_EXTRACTORS = ("sift", "vit", "trainable_vit", "hybrid")
+EVAL_SIZE = (480, 640)
+EVAL_IMAGES = 4
+EVAL_KEYPOINTS = 2048
+EVAL_CPU_PAIRS = 2
+EVAL_CPU_MATCHES = 0.1
+EVAL_CPU_MMA = 0.1
+EVAL_TRAIN_STEPS = 4
+EVAL_TRAIN_BATCH = 2
+EVAL_RECON_CAMS = 8
+EVAL_BUDGET_S = 90.0
+BAKEOFF_ROWS = ("sift", "vit", "trainable_vit", "trainable_vit_trained")
+
+
+def eval_row(result) -> dict:
+    return {"pairs": len(result.pairs), "avg_matches": result.avg_matches,
+            "mma": result.mma, "h_acc": result.homography_accuracy}
+
+
+def plain_pair_matcher(d1, d2, v1, v2):
+    """The plain single-pair matcher on a batch of one pair."""
+    from vit_colmap_tpu_torch.ops.matching import match_pair
+
+    return match_pair(d1[0], d2[0], v1[0], v2[0])[None]
+
+
+def hpatches_eval(work: Path, weights: Path) -> dict:
+    """(a) Each extractor of the port's HPatches evaluation on the cut tree,
+    its launch counts cleared before and read after: kernel 1 in every
+    backbone layer of each unique image for the ViT extractors, kernel 2
+    once a pair for all; then every pair's kernel-2 matches against plain
+    ``match_pair`` on the card, and the vit row against the CPU's."""
+    import threading
+
+    import numpy as np
+
+    import scripts.torch_eval_hpatches as teval
+    from scripts.torch_quality_bakeoff import with_backbone
+    from vit_colmap_tpu_torch.dataloader.hpatches_dataset import HPatchesDataset
+    from vit_colmap_tpu_torch.dataloader.synthetic_benchmark import generate_synthetic_hpatches
+    from vit_colmap_tpu_torch.kernels import launches as counts
+
+    tree = work / "eval_hpatches"
+    generate_synthetic_hpatches(tree, n_illum=1, n_view=1, n_img=EVAL_IMAGES, size=EVAL_SIZE,
+                                seed=0)
+    ds = HPatchesDataset(tree, split="all", pair_mode="reference_only",
+                         target_height=EVAL_SIZE[0], target_width=EVAL_SIZE[1])
+    check(len(ds) == 2 * (EVAL_IMAGES - 1), f"eval: {len(ds)} pairs")
+
+    def vit_row(device) -> dict:
+        """The vit row on the first EVAL_CPU_PAIRS pairs (a fresh extractor:
+        the PCA fitted on image 1, as in the full evaluation)."""
+        fn = teval.make_extract_fn("vit", "vitb14", str(weights), EVAL_KEYPOINTS, device=device)
+        feats = []
+        t = time.perf_counter()
+        res, _ = teval.evaluate_dataset(
+            ds, lambda img: feats.append(fn(img)) or feats[-1], EVAL_CPU_PAIRS, device=device)
+        return {**eval_row(res), "keypoints": [len(f[0]) for f in feats],
+                "wall_s": time.perf_counter() - t}
+
+    # The CPU's row runs on a thread of its own while the card evaluates
+    # (the CPU's operations hold no lock that the card's path needs).
+    cpu_out = {}
+
+    def cpu_row():
+        try:
+            cpu_out["row"] = vit_row("cpu")
+        except BaseException as e:  # re-raised on the main thread below
+            cpu_out["error"] = e
+
+    cpu_thread = threading.Thread(target=cpu_row, name="eval-cpu", daemon=True)
+    cpu_thread.start()
+    trainable = with_backbone(None, str(weights), work / "eval_trainable", "vitb14")
+    real_match = teval.mutual_match
+    rows, launches, total = {}, {}, {}
+    for name in EVAL_EXTRACTORS:
+        w = trainable if name == "trainable_vit" else str(weights)
+        fn = teval.make_extract_fn(name, "vitb14", w, EVAL_KEYPOINTS, device=DEVICE)
+        pairs = []
+
+        def recorded(f1, f2, device=None, matcher=None):
+            out = real_match(f1, f2, device, matcher)
+            if threading.current_thread() is threading.main_thread():  # not the CPU's row
+                pairs.append((f1, f2, out))
+            return out
+
+        teval.mutual_match = recorded
+        try:
+            sync()
+            counts.clear()
+            t = time.perf_counter()
+            result, pps = teval.evaluate_dataset(ds, fn, device=DEVICE)
+            sync()
+            wall = time.perf_counter() - t
+            launches[name] = dict(counts)
+        finally:
+            teval.mutual_match = real_match
+        matched = sum(1 for f1, f2, _ in pairs if len(f1[0]) and len(f2[0]))
+        layers = 12 * 2 * EVAL_IMAGES if name != "sift" else 0
+        expect_launches(launches[name], {"attention_qkv": layers,
+                                         "match_topk2_colmax": matched}, f"eval {name}")
+        for f1, f2, out in pairs:
+            plain = real_match(f1, f2, DEVICE, plain_pair_matcher)
+            check(np.array_equal(out, plain), f"eval {name}: kernel 2's matches differ from "
+                  f"plain match_pair ({len(out)} vs {len(plain)} rows)")
+        rows[name] = {**eval_row(result), "wall_s": wall, "pairs_per_s": pps}
+        for k, v in launches[name].items():
+            total[k] = total.get(k, 0) + v
+        log(f"eval: {name} on the card: {result.summary().strip()} | avg matches "
+            f"{result.avg_matches:.1f}, {pps:.2f} pairs/s, {wall:.1f} s, launches "
+            f"{launches[name]}; {len(pairs)} pairs' kernel-2 matches equal plain match_pair")
+
+    card = vit_row(DEVICE)
+    cpu_thread.join()
+    if "error" in cpu_out:
+        raise cpu_out["error"]
+    cpu = cpu_out["row"]
+    log(f"eval: vit on {EVAL_CPU_PAIRS} pairs, card {card} vs cpu {cpu}")
+    check(card["keypoints"] == cpu["keypoints"],
+          f"eval: vit keypoint counts card {card['keypoints']} vs cpu {cpu['keypoints']}")
+    check(abs(card["avg_matches"] - cpu["avg_matches"])
+          <= max(2.0, EVAL_CPU_MATCHES * cpu["avg_matches"])
+          and abs(card["mma"][3.0] - cpu["mma"][3.0]) <= EVAL_CPU_MMA,
+          f"eval: vit card vs cpu out of bounds: {card} vs {cpu}")
+    return {"rows": rows, "launches": total, "by_extractor": launches,
+            "vit_card_cpu": {"card": card, "cpu": cpu}}
+
+
+def bakeoff_run(work: Path, weights: Path) -> dict:
+    """(b) The bake-off with training on the cut tree, its launch counts
+    cleared before and read after (kernels 1 and 2 and no other); every row
+    in QUALITY.json and QUALITY.md, and the trained row loaded from the
+    checkpoint this run trained (its heads, the --weights backbone)."""
+    import torch
+
+    import scripts.torch_quality_bakeoff as tbake
+    from vit_colmap_tpu_torch.features import trainable_vit_extractor as ttve
+    from vit_colmap_tpu_torch.kernels import launches as counts
+    from vit_colmap_tpu_torch.training.checkpoint import load_checkpoint
+    from vit_colmap_tpu_torch.utils import metrics as metrics_mod
+
+    out = work / "bakeoff"
+    argv = ["--work-dir", str(out), "--extractors", "sift,vit,trainable_vit", "--train",
+            "--backbone", "vitb14", "--height", str(EVAL_SIZE[0]), "--width",
+            str(EVAL_SIZE[1]), "--recon-cams", str(EVAL_RECON_CAMS), "--n-illum", "1",
+            "--n-view", "1", "--n-img", str(EVAL_IMAGES), "--epochs", "1",
+            "--steps-per-epoch", str(EVAL_TRAIN_STEPS), "--batch-size", str(EVAL_TRAIN_BATCH),
+            "--max-keypoints", str(EVAL_KEYPOINTS), "--weights", str(weights),
+            "--device", DEVICE]
+    loaded, recorded = [], []
+    real_load = ttve.TrainableViTExtractor._load_checkpoint
+    real_metrics = metrics_mod.MetricsExtractor.extract_all_metrics
+
+    def load(self, path):
+        loaded.append(str(path))
+        return real_load(self, path)
+
+    def extract_all(self, *a, **kw):
+        recorded.append(real_metrics(self, *a, **kw))
+        return recorded[-1]
+
+    ttve.TrainableViTExtractor._load_checkpoint = load
+    metrics_mod.MetricsExtractor.extract_all_metrics = extract_all
+    try:
+        sync()
+        counts.clear()
+        t = time.perf_counter()
+        results = tbake.main(argv)
+        sync()
+        wall = time.perf_counter() - t
+        launches = dict(counts)
+    finally:
+        ttve.TrainableViTExtractor._load_checkpoint = real_load
+        metrics_mod.MetricsExtractor.extract_all_metrics = real_metrics
+    log(f"bakeoff: {wall:.1f} s, launches {launches}")
+    check(launches.get("attention_qkv", 0) > 0 and launches.get("match_topk2_colmax", 0) > 0
+          and set(launches) <= {"attention_qkv", "match_topk2_colmax"},
+          f"bakeoff: launches {launches}")
+    saved = json.loads((out / "QUALITY.json").read_text())
+    md = (out / "QUALITY.md").read_text()
+    for section in ("hpatches", "hpatches_holdout", "reconstruction"):
+        check(list(saved[section]) == list(BAKEOFF_ROWS),
+              f"bakeoff: QUALITY.json {section} rows {list(saved[section])}")
+    check(all(md.count(f"| {row} |") == 3 for row in BAKEOFF_ROWS),
+          f"bakeoff: QUALITY.md rows {[md.count(f'| {r} |') for r in BAKEOFF_ROWS]}")
+    trained = out / "checkpoints" / "best_model"  # train_heads' choice
+    if not trained.exists():
+        trained = out / "checkpoints" / "latest"
+    combined = out / "weights_trainable_vit_trained"
+    check(str(combined) in loaded, f"bakeoff: trained row loaded {loaded}")
+    ours, ref = load_checkpoint(combined), load_checkpoint(trained)
+    check(ours["heads"].keys() == ref["heads"].keys()
+          and all(torch.equal(ours["heads"][k], ref["heads"][k]) for k in ref["heads"]),
+          "bakeoff: the trained row's heads are not the trained checkpoint's")
+    backbone = torch.load(weights, map_location="cpu", weights_only=True)
+    check(all(torch.equal(ours["backbone"][k], backbone[k]) for k in backbone),
+          "bakeoff: the trained row's backbone is not --weights")
+    check(len(recorded) == len(BAKEOFF_ROWS), f"bakeoff: {len(recorded)} metrics results")
+    for row, res in zip(BAKEOFF_ROWS, recorded):
+        res.extractor_type = row
+    for section in ("hpatches", "hpatches_holdout"):
+        for row, r in saved[section].items():
+            log(f"bakeoff: {section} {row}: pairs {r['pairs']}, avg matches "
+                f"{r['avg_matches']:.1f}, MMA@1/3/5 {[round(r['mma'][k], 4) for k in r['mma']]}, "
+                f"H-acc@1/3/5 {[round(v, 4) for v in r['homography_accuracy'].values()]}")
+    for row, r in saved["reconstruction"].items():
+        rec, pose = r["reconstruction"] or {}, r.get("pose_vs_gt") or {}
+        log(f"bakeoff: reconstruction {row}: registered {rec.get('registered_images', 0)} "
+            f"of {EVAL_RECON_CAMS}, points {rec.get('total_3d_points', 0)}, rotation error "
+            f"{pose.get('pose_rot_err_deg_mean')} deg over {pose.get('aligned_cameras')} "
+            f"aligned cameras, {r['wall_clock_s']:.1f} s")
+    return {"wall_s": wall, "launches": launches, "results": saved, "metrics": recorded,
+            "loaded": loaded}
+
+
+def reports_run(work: Path, metrics: list) -> dict:
+    """(c) The bake-off's reconstruction rows exported with
+    ``export_metrics``, then compared and aggregated; each report must name
+    every row."""
+    import re
+
+    import scripts.torch_aggregate_results as tagg
+    import scripts.torch_compare_metrics as tcmp
+    from vit_colmap_tpu_torch.utils.export import export_metrics
+
+    root = work / "eval_metrics"
+    for res in metrics:
+        export_metrics(res, root)
+    t = time.perf_counter()
+    tcmp.main(["--results-dir", str(root), "--dataset", "synthetic", "--scene", "scene",
+               "--extractors", *BAKEOFF_ROWS, "--output", str(root / "compare.md")])
+    tagg.main(["--results-dir", str(root), "--output", str(root / "report.md"),
+               "--csv", str(root / "all.csv")])
+    wall = time.perf_counter() - t
+    compare, report = (root / "compare.md").read_text(), (root / "report.md").read_text()
+    check("| Metric | " + " | ".join(BAKEOFF_ROWS) + " |" in compare
+          and all(re.search(rf"^{row} ", report, re.M) for row in BAKEOFF_ROWS),
+          "eval: a report lacks an extractor")
+    log(f"reports: compare.md ({len(compare.splitlines())} lines) and report.md "
+        f"({len(report.splitlines())} lines) over {len(metrics)} exported rows in {wall:.2f} s")
+    return {"wall_s": wall, "compare_lines": len(compare.splitlines()),
+            "report_lines": len(report.splitlines())}
+
+
+def eval_phase(work: Path, weights: Path) -> dict:
+    """The evaluation entry points on the card: (a) the HPatches evaluation
+    of each extractor, (b) the bake-off with training, (c) the reports over
+    its exported metrics; the seconds of each part, within EVAL_BUDGET_S."""
+    t0 = time.perf_counter()
+    hp = hpatches_eval(work, weights)
+    t1 = time.perf_counter()
+    bake = bakeoff_run(work, weights)
+    t2 = time.perf_counter()
+    reports = reports_run(work, bake["metrics"])
+    t3 = time.perf_counter()
+    seconds = {"hpatches": t1 - t0, "bakeoff": t2 - t1, "reports": t3 - t2, "total": t3 - t0}
+    log(f"eval: seconds {seconds}; launches eval {hp['launches']}, bakeoff {bake['launches']}")
+    check(seconds["total"] <= EVAL_BUDGET_S,
+          f"eval: the phase took {seconds['total']:.1f} s, over {EVAL_BUDGET_S} s")
+    return {"seconds": seconds, "launches": hp["launches"], "bakeoff_launches": bake["launches"],
+            "rows": hp["rows"], "vit_card_cpu": hp["vit_card_cpu"], "reports": reports}
+
+
 def sustained(fn) -> dict:
     """nvidia-smi's SM clock (MHz) and power draw (W), six samples over
     about two seconds while ``fn`` runs back to back."""
@@ -4654,6 +4948,7 @@ def main() -> int:
         train = train_phase(work, work / "vitb14_random.pth")
         parallel = parallel_phase(work, work / "vitb14_random.pth", extractor,
                                   work / "hpatches", work / "train_frozen" / "best_model")
+        evaluation = eval_phase(work, work / "vitb14_random.pth")
     check(not POWERLESS, "known-wrong kernels passed a check: " + "; ".join(POWERLESS))
 
     # name -> (source, TPU kernel it replaces, launches on its own path)
@@ -4681,7 +4976,8 @@ def main() -> int:
              "train": train["launches"], "hybrid": hybrid["launches"],
              "serve": serve["launches"], "device_loops": loops["launches"],
              "native_io": native["launches"], "native_io_scene": native["scene_launches"],
-             "parallel": parallel["launches"],
+             "parallel": parallel["launches"], "eval": evaluation["launches"],
+             "bakeoff": evaluation["bakeoff_launches"],
              "fixedmax": fixedmax_launches, **{f"paths_{k}": v for k, v in
                                               path_launches.items()}}
     kernels = []
@@ -4712,6 +5008,7 @@ def main() -> int:
         f"device loops {loops}, "
         f"parallel { {k: v for k, v in parallel.items() if k != 'launches'} }, "
         f"native-io { {k: v for k, v in native.items() if 'launches' not in k} }, "
+        f"eval { {k: v for k, v in evaluation.items() if 'launches' not in k} }, "
         f"rates {rates}, "
         f"int8 rows differing from the float matcher {int8_vs_float}, saliency "
         f"{saliency}, attention bound split {split}, f32 attention ms {f32_ms}, "

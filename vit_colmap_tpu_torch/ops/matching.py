@@ -4,7 +4,8 @@ Counterpart of ``vit_colmap_tpu/ops/matching.py``.  COLMAP SIFT-matcher
 semantics: L2-normalized descriptors, cosine similarity, angular distance
 ``acos(sim)``; a match is kept iff ``acos(best) <= max_distance``,
 ``acos(best) <= max_ratio * acos(second)`` and, with ``cross_check``, it is
-a mutual nearest neighbour.  ``match_pairs_batched`` is the straightforward
+a mutual nearest neighbour.  ``match_pair`` matches one pair, and
+``match_pairs_batched``, the same body over a batch, is the straightforward
 matmul + top-2 matcher (the reference's, for ``use_pallas=False`` and for
 widths that are not a multiple of 128); the pipeline otherwise matches with
 the kernels (``kernels/match.py``), which compute the same function without
@@ -24,6 +25,22 @@ def normalize_descriptors(desc: torch.Tensor) -> torch.Tensor:
     """uint8/float descriptors -> L2-normalized float32 rows."""
     d = desc.float()
     return d / torch.clamp_min(torch.linalg.norm(d, dim=-1, keepdim=True), 1e-8)
+
+
+def match_pair(
+    d1: torch.Tensor,  # (N, D) f32, L2-normalized rows
+    d2: torch.Tensor,  # (M, D)
+    valid1: torch.Tensor,  # (N,) bool
+    valid2: torch.Tensor,  # (M,) bool
+    max_ratio: float = 0.8,
+    max_distance: float = 0.7,
+    cross_check: bool = True,
+) -> torch.Tensor:
+    """Match one padded descriptor pair: (N,) int32, each row's matched
+    column in image 2, or -1.  :func:`match_pairs_batched` on a batch of
+    one."""
+    return match_pairs_batched(d1[None], d2[None], valid1[None], valid2[None], max_ratio,
+                               max_distance, cross_check)[0]
 
 
 def match_pairs_batched(

@@ -30,7 +30,9 @@ from either ``IMREAD_GRAYSCALE`` conversion by up to 1.
 pixel is the area-weighted mean of the input pixels its footprint overlaps,
 built as two separable weight matrices; when an axis grows, OpenCV's
 bilinear resize with its area coefficients and 11-bit fixed-point
-arithmetic (the same bytes as ``cv2.resize``).
+arithmetic (the same bytes as ``cv2.resize``).  ``resize_linear`` is
+``cv2.resize``'s default ``INTER_LINEAR``: the same fixed-point bilinear
+resize on its own coefficients (the same bytes).
 """
 
 from __future__ import annotations
@@ -355,17 +357,20 @@ def _area_linear_coeffs(n_in: int, n_out: int):
         fx * scale).astype(np.int64)
 
 
-def _resize_area_growing(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """OpenCV's uint8 bilinear resize on area coefficients: rows in 11-bit
-    fixed point, then columns as its vector code rounds them (products'
-    high halves of the rows shifted by 4, plus 2, shifted by 2)."""
+def _resize_fixed_point(img: np.ndarray, cols, rows) -> np.ndarray:
+    """(H, W, C) uint8 -> (len(rows[0]), len(cols[0]), C): OpenCV's uint8
+    bilinear resize on 11-bit coefficients (per output index the first
+    source index and two weights; the second source index is clamped to
+    the image): rows of the horizontal pass in fixed point, then columns
+    as its vector code rounds them (products' high halves of the rows
+    shifted by 4, plus 2, shifted by 2)."""
     h, w = img.shape[:2]
-    sx, ax0, ax1 = _area_linear_coeffs(w, width)
-    sy, by0, by1 = _area_linear_coeffs(h, height)
+    (sx, ax0, ax1), (sy, by0, by1) = cols, rows
     src = img.astype(np.int64)
-    rows = (src[:, sx] * ax0[None, :, None]
-            + src[:, np.minimum(sx + 1, w - 1)] * ax1[None, :, None])
-    s0, s1 = rows[sy] >> 4, rows[np.minimum(sy + 1, h - 1)] >> 4
+    hor = (src[:, sx] * ax0[None, :, None]
+           + src[:, np.minimum(sx + 1, w - 1)] * ax1[None, :, None])
+    s0 = hor[np.clip(sy, 0, h - 1)] >> 4
+    s1 = hor[np.clip(sy + 1, 0, h - 1)] >> 4
     out = ((s0 * by0[:, None, None]) >> 16) + ((s1 * by1[:, None, None]) >> 16)
     return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
 
@@ -377,10 +382,40 @@ def resize_area(img: np.ndarray, width: int, height: int) -> np.ndarray:
     if (h, w) == (height, width):
         return img
     if width > w or height > h:
-        return _resize_area_growing(img, width, height)
+        return _resize_fixed_point(img, _area_linear_coeffs(w, width),
+                                   _area_linear_coeffs(h, height))
     wy = area_weights(h, height)
     wx = area_weights(w, width)
     c = img.shape[2]
     rows = (wy @ img.reshape(h, w * c).astype(np.float64)).reshape(height, w, c)
     out = np.tensordot(rows, wx, axes=([1], [1])).transpose(0, 2, 1)
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def _linear_coeffs(n_in: int, n_out: int, clamp: bool):
+    """OpenCV's ``INTER_LINEAR`` coefficients: per output index the first
+    source index and the two weights in 11-bit fixed point.  Columns are
+    clamped to the image (source index and weight 0 at either edge); rows
+    are not: an edge row keeps its weights and reads the edge row twice."""
+    fx = ((np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5).astype(np.float32)
+    sx = np.floor(fx).astype(np.int64)
+    fx = (fx - sx).astype(np.float32)
+    if clamp:
+        out = (sx < 0) | (sx >= n_in - 1)
+        fx = np.where(out, np.float32(0), fx)
+        sx = np.clip(sx, 0, n_in - 1)
+    scale = np.float32(1 << 11)
+    return (sx, np.rint((np.float32(1) - fx) * scale).astype(np.int64),
+            np.rint(fx * scale).astype(np.int64))
+
+
+def resize_linear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H, W[, C]) uint8 -> (height, width[, C]) uint8 (no channel axis for
+    C = 1), as ``cv2.resize(img, (width, height))`` (``INTER_LINEAR``; not
+    ``INTER_LINEAR_EXACT``, whose weights and rounding differ)."""
+    h, w = img.shape[:2]
+    out = _resize_fixed_point(np.asarray(img).reshape(h, w, -1),
+                              _linear_coeffs(w, width, clamp=True),
+                              _linear_coeffs(h, height, clamp=False))
+    # cv2 returns a one-channel image without its channel axis.
+    return out.reshape((height, width) + tuple(c for c in img.shape[2:] if c > 1))
