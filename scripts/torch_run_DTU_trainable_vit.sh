@@ -1,0 +1,9 @@
+#!/usr/bin/env bash
+# DTU reconstruction with the port's trained keypoint/descriptor heads.
+# VIT_WEIGHTS=<dir> loads a checkpoint directory of the port's trainer
+# (e.g. checkpoints/best_model) or a reference-layout .pt/.pth.
+set -euo pipefail
+EXTRA=()
+if [ -n "${VIT_WEIGHTS:-}" ]; then EXTRA+=(--vit-weights "$VIT_WEIGHTS"); fi
+EXTRACTOR=trainable_vit exec "$(dirname "$0")/torch_run_DTU_sift.sh" "$1" "${2:-}" \
+  "${EXTRA[@]}" "${@:3}"

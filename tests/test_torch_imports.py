@@ -14,10 +14,15 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "pycolmap"
              "pandas", "vit_colmap_tpu"}
 # The port's entry-point scripts (the comparison scripts that run the JAX
 # package on the CPU, torch_recon_bars.py, torch_verify_bars.py and
-# torch_verify_uniforms.py, are not among them).
+# torch_verify_uniforms.py, are not among them, nor the fixture writer
+# torch_sift_fidelity_fixtures.py, which runs OpenCV where it exists).
 SCRIPTS = ["torch_eval_hpatches.py", "torch_quality_bakeoff.py", "torch_compare_metrics.py",
            "torch_aggregate_results.py", "torch_visualize_matches.py",
-           "torch_plot_training_losses.py"]
+           "torch_plot_training_losses.py", "torch_bench_matching.py",
+           "torch_bench_trainstep.py", "torch_bench_serve.py", "torch_sift_fidelity_table.py",
+           "torch_visualize_invariant_points.py", "torch_visualize_hpatches_warping.py",
+           "torch_visualize_training_sampling.py", "torch_diag_scene.py",
+           "torch_bisect_geometry.py"]
 SOURCES = sorted((ROOT / "vit_colmap_tpu_torch").rglob("*.py")) + [
     ROOT / "scripts" / name for name in SCRIPTS] + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]

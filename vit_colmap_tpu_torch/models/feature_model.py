@@ -17,6 +17,7 @@ return the flax model's NHWC maps.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Mapping, Optional, Union
 
@@ -24,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vit_colmap_tpu_torch.device import exact_f32_convolutions
+from vit_colmap_tpu_torch.device import exact_f32_convolutions, exact_f32_matmuls
 from vit_colmap_tpu_torch.models.dinov2 import DinoV2, ViTConfig
 
 
@@ -38,6 +39,50 @@ class FeatureModelConfig:
     # "group": GroupNorm in the upsampling blocks; "none": no norm (the
     # reference's torch checkpoints, BatchNorms folded into the convs).
     norm: str = "group"
+
+
+@functools.lru_cache(maxsize=32)
+def bilinear_weights(n_in: int, n_out: int, device=torch.device("cpu")) -> torch.Tensor:
+    """(n_out, n_in) f32 weights of ``F.interpolate(mode="bilinear",
+    align_corners=False)`` along one axis, as PyTorch computes them: source
+    index ``(n_in / n_out) * (i + 0.5) - 0.5`` clamped at 0, the right
+    neighbour clamped at the last index.  Built on ``device`` and cached, so
+    a backward pass copies nothing from the host (a blocking copy would
+    stall it); the cached tensors are read only."""
+    scale = torch.full((), n_in / n_out, dtype=torch.float32, device=device)
+    src = torch.clamp_min(scale * (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
+                          - 0.5, 0.0)
+    i0 = src.long()
+    lam = src - i0.float()
+    i1 = torch.clamp_max(i0 + 1, n_in - 1)
+    cols = torch.arange(n_in, device=device)
+    return (torch.where(cols == i0[:, None], 1.0 - lam[:, None], 0.0)
+            + torch.where(cols == i1[:, None], lam[:, None], 0.0))
+
+
+class _BilinearResize(torch.autograd.Function):
+    """``F.interpolate(mode="bilinear", align_corners=False, antialias=False)``
+    of an f32 (B, C, H, W) map to ``size``, with the same forward and a
+    backward that applies the transposed weights as two products.
+    PyTorch's own backward adds with float atomics on the card, in no fixed
+    order, so two runs of one training step would not be bit-equal."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+        ctx.in_hw = tuple(x.shape[-2:])
+        ctx.size = tuple(size)
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False,
+                             antialias=False)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        wy = bilinear_weights(ctx.in_hw[0], ctx.size[0], grad.device)
+        wx = bilinear_weights(ctx.in_hw[1], ctx.size[1], grad.device)
+        with exact_f32_matmuls():
+            return wy.T @ grad @ wx, None
+
+
+resize_bilinear = _BilinearResize.apply
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
@@ -95,9 +140,8 @@ class FeatureHeads(nn.Module):
         with exact_f32_convolutions():  # no TF32 for the f32 convolutions
             x = self.up2(self.up1(x))
             # 4*gh -> gh*14//4 is a downscale; no antialiasing, as the
-            # reference's F.interpolate.
-            x = F.interpolate(x.float(), size=(gh * 14 // 4, gw * 14 // 4),
-                              mode="bilinear", align_corners=False, antialias=False)
+            # reference's F.interpolate (a deterministic backward).
+            x = resize_bilinear(x.float(), (gh * 14 // 4, gw * 14 // 4))
             trunk = F.gelu(_conv(x, self.trunk, dt))
             kp = _conv(F.gelu(_conv(trunk, self.kp1, dt)), self.kp2, torch.float32)
             ds = _conv(F.gelu(_conv(trunk, self.desc1, dt)), self.desc2, torch.float32)

@@ -14,8 +14,14 @@ import torch
 
 def bilinear_sample(fmap: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Sample (B, H, W, C) features at (B, N, 2) continuous (x, y) map
-    coordinates, clamped to the border -> (B, N, C)."""
+    coordinates, clamped to the border -> (B, N, C).
+
+    The four corners are read by one indexing, whose gradient accumulates
+    in sorted order (``index_put_`` with ``accumulate=True``); ``gather``'s
+    adds with float atomics on the card, in no fixed order.  One indexing
+    for all four keeps the backward to one sort."""
     B, H, W, C = fmap.shape
+    N = xy.shape[1]
     x = torch.clamp(xy[..., 0], 0.0, W - 1.0)
     y = torch.clamp(xy[..., 1], 0.0, H - 1.0)
     x0 = torch.floor(x).long()
@@ -24,13 +30,11 @@ def bilinear_sample(fmap: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     y1 = torch.clamp_max(y0 + 1, H - 1)
     wx = (x - x0.to(x.dtype))[..., None]
     wy = (y - y0.to(y.dtype))[..., None]
-    flat = fmap.reshape(B, H * W, C)
-
-    def g(yy, xx):
-        return torch.gather(flat, 1, (yy * W + xx)[..., None].expand(-1, -1, C))
-
-    top = g(y0, x0) * (1 - wx) + g(y0, x1) * wx
-    bot = g(y1, x0) * (1 - wx) + g(y1, x1) * wx
+    idx = torch.stack([y0 * W + x0, y0 * W + x1, y1 * W + x0, y1 * W + x1], dim=-1)
+    batch = torch.arange(B, device=fmap.device)[:, None]
+    g = fmap.reshape(B, H * W, C)[batch, idx.reshape(B, 4 * N)].reshape(B, N, 4, C)
+    top = g[:, :, 0] * (1 - wx) + g[:, :, 1] * wx
+    bot = g[:, :, 2] * (1 - wx) + g[:, :, 3] * wx
     return top * (1 - wy) + bot * wy
 
 
