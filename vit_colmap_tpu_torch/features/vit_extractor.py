@@ -99,6 +99,7 @@ from vit_colmap_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from vit_colmap_tpu_torch.utils.image_io import imread_rgb
+from vit_colmap_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -235,25 +236,31 @@ class ViTExtractor(BaseExtractor):
         multiple of the data slots, so every slot gets an image."""
         return pad_to_multiple(self.image_batch, self._ndev)
 
-    def _over_slots(self, body, batch):
+    def _over_slots(self, body, batch, pack=None):
         """``body(model, share, pca)`` on each data slot's share of ``batch``
-        (padded with zeros to a multiple of the slots), the slot's backbone
-        replica and PCA on its device; the outputs gathered in batch order on
-        ``self.device``, the padding dropped.  One slot runs inline on the
-        extractor's own model."""
-        batch = torch.as_tensor(batch)
-        b0 = batch.shape[0]
-        pad = (-b0) % self._ndev
-        if pad:
-            batch = torch.cat([batch, batch.new_zeros((pad, *batch.shape[1:]))])
-        devices = self.mesh.data_devices
-        if self._replicas is None:
-            self._replicas = replicate_module(self.model, devices)
-        pcas = [None if self._pca is None else tuple(t.to(d) for t in self._pca)
-                for d in devices]
+        (first packed by ``pack`` where given, then padded with zeros to a
+        multiple of the slots), the slot's backbone replica and PCA on its
+        device; the outputs gathered in batch order on ``self.device``, the
+        padding dropped.  One slot runs inline on the extractor's own
+        model."""
+        with span("vc.extract.wire"):
+            batch = torch.as_tensor(batch if pack is None else pack(batch))
+            b0 = batch.shape[0]
+            pad = (-b0) % self._ndev
+            if pad:
+                batch = torch.cat([batch, batch.new_zeros((pad, *batch.shape[1:]))])
+            devices = self.mesh.data_devices
+            if self._replicas is None:
+                self._replicas = replicate_module(self.model, devices)
+            pcas = [None if self._pca is None else tuple(t.to(d) for t in self._pca)
+                    for d in devices]
+        with span("vc.extract.h2d"):
+            shares = shard_batch(batch, self.mesh)
         outs = run_slots(lambda i, share: body(self._replicas[i], share, pcas[i]), devices,
-                         shard_batch(batch, self.mesh))
+                         shares)
         out = gather(outs, self.device)
+        if not pad:
+            return out
         return out[:b0] if isinstance(out, torch.Tensor) else tuple(t[:b0] for t in out)
 
     @torch.no_grad()
@@ -264,6 +271,7 @@ class ViTExtractor(BaseExtractor):
         self._forward_built = True
         return self._over_slots(lambda model, share, _pca: self._dense(model, share), wire)
 
+    @span("vc.extract.forward")
     @torch.no_grad()
     def _dense(self, model, wire: torch.Tensor) -> torch.Tensor:
         if self.transfer_format == "yuv420":
@@ -275,6 +283,7 @@ class ViTExtractor(BaseExtractor):
         gh, gw = out["grid"]
         return out["x_norm_patchtokens"].reshape(x.shape[0], gh, gw, -1)
 
+    @span("vc.extract.detect")
     @torch.no_grad()
     def _detect(self, fmap: torch.Tensor, pca_comps, pca_mean):
         fmap = fmap.float()
@@ -305,13 +314,19 @@ class ViTExtractor(BaseExtractor):
         desc[, f32 desc]); the host is not synchronized.  ``packed=True``
         means ``images_u8`` is already in ``transfer_format`` (for example
         from ``to_wire``); otherwise it is RGB and is packed here."""
-        wire = images_u8 if packed else self.to_wire(images_u8)
+        with span("vc.extract.batch"):
+            return self._extract_async(images_u8, packed)
+
+    def _extract_async(self, images_u8, packed: bool):
+        self._forward_built = True
+        pack = None if packed else self.to_wire
         if self._pca is not None:
             # The fused body on every slot: backbone, detection and PCA.
-            self._forward_built = True
             return self._over_slots(
-                lambda model, share, pca: self._detect(self._dense(model, share), *pca), wire)
-        fmap = self.dense_features(wire)
+                lambda model, share, pca: self._detect(self._dense(model, share), *pca),
+                images_u8, pack)
+        fmap = self._over_slots(lambda model, share, _pca: self._dense(model, share),
+                                images_u8, pack)
         flat = fmap.float().reshape(-1, fmap.shape[-1])
         self._pca = fit_pca(flat, self.descriptor_dim)
         logger.info("Fitted PCA %d->%d on %d tokens", fmap.shape[-1],
@@ -366,7 +381,10 @@ class ViTExtractor(BaseExtractor):
     def extract_batch(self, images_u8: np.ndarray):
         """(B, H, W, 3) uint8 RGB (H, W multiples of 14) -> numpy
         (xy grid coords, scores, valid, uint8 desc[, f32 desc])."""
-        return tuple(t.cpu().numpy() for t in self.extract_batch_async(images_u8))
+        with span("vc.extract.batch"):
+            outs = self._extract_async(images_u8, False)
+            with span("vc.extract.readback"):
+                return tuple(t.cpu().numpy() for t in outs)
 
     def _ensure_pca(self, rgbs_sorted: list[np.ndarray]) -> None:
         """Fit (or load) the PCA on a canonical image sample so descriptors

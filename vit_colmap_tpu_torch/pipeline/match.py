@@ -62,6 +62,7 @@ from vit_colmap_tpu_torch.parallel.mesh import (
 )
 from vit_colmap_tpu_torch.sfm.geometry import undistort_points
 from vit_colmap_tpu_torch.utils.config import MatchingConfig
+from vit_colmap_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -178,6 +179,7 @@ class MatchStats:
     verify_chunks: Counter = field(default_factory=Counter)
 
 
+@span("vc.match.job")
 def match_exhaustive(
     db_path,
     config: Optional[MatchingConfig] = None,
@@ -208,113 +210,129 @@ def match_exhaustive(
                 " (descriptors sharded)" if config.shard_descriptors else "")
     stats = MatchStats()
 
-    db = ColmapDatabase(db_path)
-    try:
-        images = db.read_images()
-        cameras = db.read_cameras()
-        image_ids = sorted(images)
-        n_img = len(image_ids)
-        if n_img < 2:
-            logger.warning("Fewer than 2 images; nothing to match")
-            return stats
-        names = [images[iid]["name"] for iid in image_ids]
-        use_dev = device_descriptors is not None and all(
-            n in device_descriptors for n in names
-        )
-        if use_dev:
-            use_dev = len({device_descriptors[n][0].shape[-1] for n in names}) == 1
-        # counts: keypoints per image (sets the padded width); n_valid:
-        # descriptor rows that take part in matching.
-        desc_list, counts, n_valid, kpts = [], [], [], []
-        for iid, name in zip(image_ids, names):
-            k = db.read_keypoints(iid)
-            n_k = 0 if k is None else len(k)
-            counts.append(n_k)
-            cam = cameras[images[iid]["camera_id"]]
-            k = np.zeros((0, 2), np.float32) if k is None else k[:, :2].astype(np.float32)
-            kpts.append(undistort_points(k, cam))
+    with span("vc.match.read"):
+        db = ColmapDatabase(db_path)
+        try:
+            images = db.read_images()
+            cameras = db.read_cameras()
+            image_ids = sorted(images)
+            n_img = len(image_ids)
+            if n_img < 2:
+                logger.warning("Fewer than 2 images; nothing to match")
+                return stats
+            names = [images[iid]["name"] for iid in image_ids]
+            use_dev = device_descriptors is not None and all(
+                n in device_descriptors for n in names
+            )
             if use_dev:
-                d, cnt = device_descriptors[name]
-                desc_list.append(d)
-                n_valid.append(min(cnt, n_k))
-            else:
-                d = db.read_descriptors(iid)
-                if d is None or n_k == 0:
-                    d = np.zeros((0, 128), np.uint8)
-                desc_list.append(torch.from_numpy(d))
-                n_valid.append(len(d))
-    finally:
-        db.close()
+                use_dev = len({device_descriptors[n][0].shape[-1] for n in names}) == 1
+            # counts: keypoints per image (sets the padded width); n_valid:
+            # descriptor rows that take part in matching.
+            desc_list, counts, n_valid, kpts = [], [], [], []
+            for iid, name in zip(image_ids, names):
+                k = db.read_keypoints(iid)
+                n_k = 0 if k is None else len(k)
+                counts.append(n_k)
+                cam = cameras[images[iid]["camera_id"]]
+                k = np.zeros((0, 2), np.float32) if k is None else k[:, :2].astype(np.float32)
+                kpts.append(undistort_points(k, cam))
+                if use_dev:
+                    d, cnt = device_descriptors[name]
+                    desc_list.append(d)
+                    n_valid.append(min(cnt, n_k))
+                else:
+                    d = db.read_descriptors(iid)
+                    if d is None or n_k == 0:
+                        d = np.zeros((0, 128), np.uint8)
+                    desc_list.append(torch.from_numpy(d))
+                    n_valid.append(len(d))
+        finally:
+            db.close()
 
     t0 = time.perf_counter()
-    n_max = _next_pow2(max(counts))
-    dim = max(d.shape[1] for d in desc_list)
-    desc = torch.zeros(n_img, n_max, dim, dtype=torch.uint8, device=dev)
-    valid = torch.zeros(n_img, n_max, dtype=torch.bool, device=dev)
-    for i, (d, c) in enumerate(zip(desc_list, n_valid)):
-        rows = min(d.shape[0], n_max)
-        desc[i, :rows, : d.shape[1]] = d[:rows].to(dev)
-        valid[i, :c] = True
-    desc = _decode_normalize_u8(
-        desc, valid, signed=config.descriptor_encoding == "signed"
-    )
+    with span("vc.match.assemble"):
+        n_max = _next_pow2(max(counts))
+        dim = max(d.shape[1] for d in desc_list)
+        desc = torch.zeros(n_img, n_max, dim, dtype=torch.uint8, device=dev)
+        valid = torch.zeros(n_img, n_max, dtype=torch.bool, device=dev)
+        for i, (d, c) in enumerate(zip(desc_list, n_valid)):
+            rows = min(d.shape[0], n_max)
+            desc[i, :rows, : d.shape[1]] = d[:rows].to(dev)
+            valid[i, :c] = True
+        desc = _decode_normalize_u8(
+            desc, valid, signed=config.descriptor_encoding == "signed"
+        )
 
-    pairs = [(i, j) for i in range(n_img) for j in range(i + 1, n_img)]
-    stats.num_pairs = len(pairs)
-    P = pad_to_multiple(config.pair_batch, ndev)  # every slot gets pairs
-    if config.shard_descriptors:
-        pad_img = (-n_img) % ndev  # zero images, never indexed
-        desc = torch.cat([desc, desc.new_zeros((pad_img, *desc.shape[1:]))])
-        valid = torch.cat([valid, valid.new_zeros((pad_img, valid.shape[1]))])
-        matcher = _build_desc_sharded_matcher(mesh, config.cross_check, config.use_pallas)
-        desc, valid = _own_shards(desc, mesh), _own_shards(valid, mesh)
-    else:
-        matcher = _build_sharded_pallas_matcher(mesh, config.cross_check, config.use_pallas)
-        desc, valid = replicate(desc, mesh), replicate(valid, mesh)
-    all_matches: dict[tuple[int, int], np.ndarray] = {}
-    pending = []
-    for start in range(0, len(pairs), P):
-        chunk = pairs[start : start + P]
-        # The last chunk padded to a multiple of the slots with pair (0, 0),
-        # whose rows are dropped.
-        pad = [0] * (pad_to_multiple(len(chunk), ndev) - len(chunk))
-        i1 = torch.tensor([c[0] for c in chunk] + pad)
-        i2 = torch.tensor([c[1] for c in chunk] + pad)
-        out = matcher(desc, valid, i1, i2, config.max_ratio, config.max_distance)[: len(chunk)]
-        pending.append((chunk, compact_matches_device(out)))
-    for chunk, (m_counts, packed) in pending:
-        m_counts = m_counts.cpu().numpy()
-        k_max = int(m_counts.max(initial=0))
-        if k_max == 0:
-            continue
-        prefix = packed[:, : min(_next_pow2(k_max), packed.shape[-1])].cpu().numpy()
-        for b, (i, j) in enumerate(chunk):
-            m = unpack_matches(prefix[b], int(m_counts[b]))
-            if len(m) > config.max_num_matches:
-                m = m[: config.max_num_matches]
-            if len(m) > 0:
-                all_matches[(i, j)] = m
+        pairs = [(i, j) for i in range(n_img) for j in range(i + 1, n_img)]
+        stats.num_pairs = len(pairs)
+        P = pad_to_multiple(config.pair_batch, ndev)  # every slot gets pairs
+        if config.shard_descriptors:
+            pad_img = (-n_img) % ndev  # zero images, never indexed
+            desc = torch.cat([desc, desc.new_zeros((pad_img, *desc.shape[1:]))])
+            valid = torch.cat([valid, valid.new_zeros((pad_img, valid.shape[1]))])
+            matcher = _build_desc_sharded_matcher(mesh, config.cross_check, config.use_pallas)
+            desc, valid = _own_shards(desc, mesh), _own_shards(valid, mesh)
+        else:
+            matcher = _build_sharded_pallas_matcher(mesh, config.cross_check, config.use_pallas)
+            desc, valid = replicate(desc, mesh), replicate(valid, mesh)
+    with span("vc.match.launch"):
+        pending = []
+        for start in range(0, len(pairs), P):
+            chunk = pairs[start : start + P]
+            # The last chunk padded to a multiple of the slots with pair (0, 0),
+            # whose rows are dropped.
+            pad = [0] * (pad_to_multiple(len(chunk), ndev) - len(chunk))
+            i1 = torch.tensor([c[0] for c in chunk] + pad)
+            i2 = torch.tensor([c[1] for c in chunk] + pad)
+            out = matcher(desc, valid, i1, i2, config.max_ratio, config.max_distance)[: len(chunk)]
+            pending.append((chunk, compact_matches_device(out)))
+    with span("vc.match.unpack"):
+        all_matches: dict[tuple[int, int], np.ndarray] = {}
+        for chunk, (m_counts, packed) in pending:
+            m_counts = m_counts.cpu().numpy()
+            k_max = int(m_counts.max(initial=0))
+            if k_max == 0:
+                continue
+            prefix = packed[:, : min(_next_pow2(k_max), packed.shape[-1])].cpu().numpy()
+            for b, (i, j) in enumerate(chunk):
+                m = unpack_matches(prefix[b], int(m_counts[b]))
+                if len(m) > config.max_num_matches:
+                    m = m[: config.max_num_matches]
+                if len(m) > 0:
+                    all_matches[(i, j)] = m
 
     # Bulk writes go through the C++ writer (one transaction) where it
-    # builds; ColmapDatabase is the fallback, as in the JAX package.
-    writer = open_bulk_writer(db_path)
-    try:
-        for (i, j), m in all_matches.items():
-            writer.add_matches(image_ids[i], image_ids[j], m)
-            stats.total_matches += len(m)
-        writer.commit()
+    # builds; ColmapDatabase is the fallback, as in the JAX package.  With
+    # verification the writer stays open for its geometries: its close is
+    # a second ``vc.match.write`` span after ``vc.match.verify``.
+    verify = bool(config.do_verification and all_matches)
+    with span("vc.match.write"):
+        writer = open_bulk_writer(db_path)
+        try:
+            for (i, j), m in all_matches.items():
+                writer.add_matches(image_ids[i], image_ids[j], m)
+                stats.total_matches += len(m)
+            writer.commit()
+        except BaseException:
+            writer.close()
+            raise
         stats.matched_pairs = len(all_matches)
         stats.match_seconds = time.perf_counter() - t0
-        logger.info(
-            "Matched %d/%d pairs (%d matches) in %.2fs",
-            stats.matched_pairs, stats.num_pairs, stats.total_matches,
-            stats.match_seconds,
-        )
-        if config.do_verification and all_matches:
-            cams = [cameras[images[iid]["camera_id"]] for iid in image_ids]
-            _verify(all_matches, kpts, cams, image_ids, config, seed, dev, writer, stats)
-    finally:
-        writer.close()
+        if not verify:
+            writer.close()
+    logger.info(
+        "Matched %d/%d pairs (%d matches) in %.2fs",
+        stats.matched_pairs, stats.num_pairs, stats.total_matches,
+        stats.match_seconds,
+    )
+    if verify:
+        try:
+            with span("vc.match.verify"):
+                cams = [cameras[images[iid]["camera_id"]] for iid in image_ids]
+                _verify(all_matches, kpts, cams, image_ids, config, seed, dev, writer, stats)
+        finally:
+            with span("vc.match.write"):
+                writer.close()
     return stats
 
 
