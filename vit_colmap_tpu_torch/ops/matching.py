@@ -145,8 +145,8 @@ PACK_SENTINEL = 2**31 - 1  # sorts after any packed (row, col)
 
 def compact_matches_device(match_idx: torch.Tensor):
     """(P, N) matches -> (counts (P,), packed (P, N)): each match packed as
-    ``(row << 16) | col`` and sorted to the front of its row, so the host
-    reads counts and a short prefix instead of the whole array."""
+    ``(row << 16) | col`` and sorted to the front of its row, so that a
+    row's matches are its first ``count`` entries (:func:`unpack_matches`)."""
     n = match_idx.shape[-1]
     rows = torch.arange(n, dtype=torch.int32, device=match_idx.device)
     matched = match_idx >= 0

@@ -6,9 +6,14 @@ Counterpart of ``vit_colmap_tpu/pipeline/match.py``:
    the extractor's device-resident descriptors), pad ragged counts to one
    power-of-two width >= 128 with validity masks;
 2. decode (signed encoding) and L2-normalize on the device;
-3. match pair batches with the pair matcher (the matching kernel on CUDA);
-4. compact matches on the device, read back counts and a prefix, and write
-   the ``matches`` table through the batched C++ writer
+3. match pair batches with the pair matcher (the matching kernel on CUDA),
+   their image indices sliced from one index vector built on the device
+   once a job, so that queuing a batch never waits for the device;
+4. compact matches on the device and queue each batch's counts and packed
+   rows back into one pinned host buffer behind it (on the CPU the outputs
+   are read where they are), then take the batches in order, waiting on a
+   batch's event only where it has not completed, while later batches
+   run; write the ``matches`` table through the batched C++ writer
    (``database/native.py``; ``ColmapDatabase`` where it is unavailable);
 5. verify pairs with at least 8 matches in batches through the batched
    RANSAC (``ops.ransac.estimate_two_view_batched``) and write
@@ -174,6 +179,10 @@ class MatchStats:
     total_inliers: int = 0
     match_seconds: float = 0.0
     verify_seconds: float = 0.0
+    # Pair batches launched, and those whose results the host had to wait
+    # for when it came to unpack them (one event wait each on CUDA).
+    chunks: int = 0
+    readback_waits: int = 0
     # RANSAC chunks run, summed over the verification batches, per loop:
     # "f", "h", "e" (8-point E) and "e5" (5-point E).
     verify_chunks: Counter = field(default_factory=Counter)
@@ -266,6 +275,12 @@ def match_exhaustive(
         pairs = [(i, j) for i in range(n_img) for j in range(i + 1, n_img)]
         stats.num_pairs = len(pairs)
         P = pad_to_multiple(config.pair_batch, ndev)  # every slot gets pairs
+        # Both index vectors of every pair, in the same row-major order, on
+        # the device; the last batch padded to a multiple of the slots with
+        # pair (0, 0), whose rows are dropped.
+        n_pad = pad_to_multiple(len(pairs), ndev)
+        idx1, idx2 = torch.nn.functional.pad(
+            torch.triu_indices(n_img, n_img, 1, device=dev), (0, n_pad - len(pairs)))
         if config.shard_descriptors:
             pad_img = (-n_img) % ndev  # zero images, never indexed
             desc = torch.cat([desc, desc.new_zeros((pad_img, *desc.shape[1:]))])
@@ -276,30 +291,43 @@ def match_exhaustive(
             matcher = _build_sharded_pallas_matcher(mesh, config.cross_check, config.use_pallas)
             desc, valid = replicate(desc, mesh), replicate(valid, mesh)
     with span("vc.match.launch"):
-        pending = []
-        for start in range(0, len(pairs), P):
-            chunk = pairs[start : start + P]
-            # The last chunk padded to a multiple of the slots with pair (0, 0),
-            # whose rows are dropped.
-            pad = [0] * (pad_to_multiple(len(chunk), ndev) - len(chunk))
-            i1 = torch.tensor([c[0] for c in chunk] + pad)
-            i2 = torch.tensor([c[1] for c in chunk] + pad)
-            out = matcher(desc, valid, i1, i2, config.max_ratio, config.max_distance)[: len(chunk)]
-            pending.append((chunk, compact_matches_device(out)))
+        # Nothing here waits for the device: on CUDA each batch's counts
+        # and whole packed rows are copied asynchronously into one pinned
+        # buffer a job, behind the batch, and an event marks their arrival.
+        on_card = dev.type == "cuda"
+        pinned = None
+        pending = []  # (first pair, counts, packed, event) a batch
+        for start in range(0, n_pad, P):
+            stop = min(start + P, n_pad)
+            out = matcher(desc, valid, idx1[start:stop], idx2[start:stop],
+                          config.max_ratio, config.max_distance)[: min(stop, len(pairs)) - start]
+            m_counts, packed = compact_matches_device(out)
+            event = None
+            if on_card:
+                if pinned is None:
+                    pinned = [torch.empty((n_pad, *t.shape[1:]), dtype=t.dtype, pin_memory=True)
+                            for t in (m_counts, packed)]
+                rows = slice(start, start + len(out))
+                m_counts = pinned[0][rows].copy_(m_counts, non_blocking=True)
+                packed = pinned[1][rows].copy_(packed, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+            pending.append((start, m_counts, packed, event))
+        stats.chunks = len(pending)
     with span("vc.match.unpack"):
+        # In batch order; while the host unpacks one, later ones still run.
         all_matches: dict[tuple[int, int], np.ndarray] = {}
-        for chunk, (m_counts, packed) in pending:
-            m_counts = m_counts.cpu().numpy()
-            k_max = int(m_counts.max(initial=0))
-            if k_max == 0:
-                continue
-            prefix = packed[:, : min(_next_pow2(k_max), packed.shape[-1])].cpu().numpy()
-            for b, (i, j) in enumerate(chunk):
-                m = unpack_matches(prefix[b], int(m_counts[b]))
+        for start, m_counts, packed, event in pending:
+            if event is not None and not event.query():
+                event.synchronize()
+                stats.readback_waits += 1
+            m_counts, packed = m_counts.numpy(), packed.numpy()
+            for b in np.flatnonzero(m_counts):
+                m = unpack_matches(packed[b], int(m_counts[b]))
                 if len(m) > config.max_num_matches:
                     m = m[: config.max_num_matches]
                 if len(m) > 0:
-                    all_matches[(i, j)] = m
+                    all_matches[pairs[start + b]] = m
 
     # Bulk writes go through the C++ writer (one transaction) where it
     # builds; ColmapDatabase is the fallback, as in the JAX package.  With
@@ -321,9 +349,9 @@ def match_exhaustive(
         if not verify:
             writer.close()
     logger.info(
-        "Matched %d/%d pairs (%d matches) in %.2fs",
+        "Matched %d/%d pairs (%d matches) in %.2fs; %d pair batches, %d readback waits",
         stats.matched_pairs, stats.num_pairs, stats.total_matches,
-        stats.match_seconds,
+        stats.match_seconds, stats.chunks, stats.readback_waits,
     )
     if verify:
         try:
