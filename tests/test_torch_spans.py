@@ -1,7 +1,8 @@
 """The port's program spans (``utils/profiling.span``): free when no
 profiler records, and, under ``torch.profiler``, one ``vc.*`` span a phase
-inside the extractor's batch, the matcher's job and the stage timer's
-stages, nested and in program order."""
+inside the extractor's batch (with one ``vc.backbone.mlp`` a block inside
+its forward), the matcher's job and the stage timer's stages, nested and
+in program order."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from vit_colmap_tpu_torch.utils.config import MatchingConfig
 EXTRACT_PHASES = ["vc.extract.wire", "vc.extract.h2d", "vc.extract.forward",
                   "vc.extract.detect", "vc.extract.readback"]
 TINY = dict(embed_dim=128, depth=2, num_heads=2, mlp_ratio=4.0, swiglu=False)
+MLP_SPAN = "vc.backbone.mlp"
 MATCH_PHASES = ["vc.match.read", "vc.match.assemble", "vc.match.launch",
                 "vc.match.unpack", "vc.match.write"]
 
@@ -105,7 +107,8 @@ def test_extract_batch_spans_each_phase_once_in_order(extractor):
     spans = _recorded(lambda: out.append(extractor.extract_batch(imgs)))
     assert [s[0] for s in spans].count("vc.extract.batch") == 1
     inner = _inside(spans, "vc.extract.batch")
-    assert inner == EXTRACT_PHASES
+    assert [n for n in inner if n != MLP_SPAN] == EXTRACT_PHASES
+    assert _inside(spans, "vc.extract.forward") == [MLP_SPAN] * TINY["depth"]
     _in_order(spans, EXTRACT_PHASES)
     xy, _sc, valid, desc = out[0][:4]
     assert len(xy) == len(desc) == 2 and desc.dtype == np.uint8 and valid.any()
@@ -114,7 +117,9 @@ def test_extract_batch_spans_each_phase_once_in_order(extractor):
 def test_extract_batch_async_spans_have_no_readback(extractor):
     imgs = np.random.default_rng(3).integers(0, 256, (2, 70, 98, 3), dtype=np.uint8)
     spans = _recorded(lambda: extractor.extract_batch_async(imgs))
-    assert _inside(spans, "vc.extract.batch") == EXTRACT_PHASES[:-1]
+    inner = _inside(spans, "vc.extract.batch")
+    assert [n for n in inner if n != MLP_SPAN] == EXTRACT_PHASES[:-1]
+    assert inner.count(MLP_SPAN) == TINY["depth"]
 
 
 def _scene_db(path, views=3, k=160, shared=120):

@@ -2,7 +2,8 @@
 
 Counterpart of ``vit_colmap_tpu/models/dinov2.py``: patch-14 conv
 embedding, cls (+ optional register) tokens, pre-norm blocks with
-LayerScale, GELU MLP (SwiGLU for vitg14) and a final LayerNorm in f32.
+LayerScale, GELU MLP (SwiGLU for vitg14 and vitg14_reg) and a final
+LayerNorm in f32.
 Parameters live in f32 and the blocks compute in ``cfg.dtype`` (bf16 by
 default), as the flax model does; ``quantize="int8"`` runs the transformer
 matmuls through :class:`QuantDense`.  The state-dict keys are those of the
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from vit_colmap_tpu_torch.device import exact_f32_convolutions
 from vit_colmap_tpu_torch.kernels import attention as attention_kernel
+from vit_colmap_tpu_torch.utils.profiling import span
 
 PATCH_SIZE = 14
 
@@ -33,8 +35,17 @@ VIT_CONFIGS = {
     "vits14": dict(embed_dim=384, depth=12, num_heads=6, mlp_ratio=4.0, swiglu=False),
     "vitb14": dict(embed_dim=768, depth=12, num_heads=12, mlp_ratio=4.0, swiglu=False),
     "vitl14": dict(embed_dim=1024, depth=24, num_heads=16, mlp_ratio=4.0, swiglu=False),
+    # The JAX package's ViT-g/14 (SwiGLU 2,736, 0.886 B parameters), kept for
+    # parity with it; it is not the public model, which is vitg14_reg.
     "vitg14": dict(
         embed_dim=1536, depth=40, num_heads=24, mlp_ratio=8 / 3, swiglu=True
+    ),
+    # The public DINOv2 ViT-g/14 with registers (hub ``dinov2_vitg14_reg``,
+    # ``vit_giant2`` with ``ffn_layer="swiglufused"``): SwiGLU 4,096 from
+    # mlp_ratio 4 by ``swiglu_hidden``, 4 registers, 1,136,485,376 parameters.
+    "vitg14_reg": dict(
+        embed_dim=1536, depth=40, num_heads=24, mlp_ratio=4.0, swiglu=True,
+        num_register_tokens=4,
     ),
 }
 
@@ -199,9 +210,10 @@ class Attention(nn.Module):
 
 
 def swiglu_hidden(cfg: ViTConfig) -> int:
-    """The SwiGLU hidden width, by the JAX package's rule: 2/3 of
-    int(embed_dim * mlp_ratio), rounded up to a multiple of 8 (2736 for
-    vitg14; the public DINOv2 ViT-g/14 uses 4096)."""
+    """The SwiGLU hidden width, by the JAX package's rule, which is
+    DINOv2's ``SwiGLUFFNFused``: 2/3 of int(embed_dim * mlp_ratio), rounded
+    up to a multiple of 8 (2736 for vitg14 at mlp_ratio 8/3; 4096 for
+    vitg14_reg at mlp_ratio 4, the public ViT-g/14's width)."""
     return (int(int(cfg.embed_dim * cfg.mlp_ratio) * 2 / 3) + 7) // 8 * 8
 
 
@@ -222,6 +234,7 @@ class Mlp(nn.Module):
             self.fc1 = _dense(cfg, d, hidden)
             self.fc2 = _dense(cfg, hidden, d)
 
+    @span("vc.backbone.mlp")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         if c.swiglu:
@@ -385,12 +398,14 @@ def patch_grid_size(h: int, w: int, patch: int = PATCH_SIZE) -> tuple[int, int]:
 def make_backbone(
     name: str = "vitb14",
     dtype: torch.dtype = torch.bfloat16,
-    num_register_tokens: int = 0,
+    num_register_tokens: Optional[int] = None,
     attn_impl: str = "auto",
     quantize: str = "none",
     generator: Optional[torch.Generator] = None,
 ) -> tuple[DinoV2, ViTConfig]:
-    cfg = ViTConfig.named(name, dtype=dtype, num_register_tokens=num_register_tokens,
-                          attn_impl=attn_impl, quantize=quantize)
+    """The backbone ``name`` of ``VIT_CONFIGS``, with the table's register
+    count unless ``num_register_tokens`` is given."""
+    regs = {} if num_register_tokens is None else {"num_register_tokens": num_register_tokens}
+    cfg = ViTConfig.named(name, dtype=dtype, attn_impl=attn_impl, quantize=quantize, **regs)
     return DinoV2(cfg, generator=generator), cfg
 
