@@ -19,7 +19,11 @@ Phases, one flushed line each with elapsed seconds:
    matcher's (kernel 5): no spill, IGMMA or IMMA in its main loop, an
    asynchronous copy in its body and no IDP4A;
 3. kernels: each of the five kernels against its plain PyTorch version on
-   the card, at the paths' shapes, in the working dtypes (and kernels 1 and
+   the card, and the add-and-norm kernel of the backbone's block boundaries
+   against its own (x_new bit for bit, y within one bf16 step on at most
+   ADD_NORM_SHARE of the elements, at the batch shapes of ViT-B (the main
+   path's), ViT-L and ViT-g/14 reg and a ragged 37 x 384, with two known-wrong variants that must
+   miss), at the paths' shapes, in the working dtypes (and kernels 1 and
    3 also in f32, on their SIMT body), the matchers also at descriptor
    widths 256 and 384; known-wrong variants of the attention plain versions
    against the same bounds (each must fail them), "last column wins"
@@ -128,8 +132,10 @@ Phases, one flushed line each with elapsed seconds:
    decode rate on 1, 2 and 8 threads;
 6. times: CUDA-event medians of each kernel, its plain version and one
    PyTorch library call computing the same function (kernels 1 and 3 also
-   in f32), each kernel's mean over calls run back to back beside its
-   median (logged only), the attention bound split into
+   in f32; the add-and-norm kernel beside PyTorch's LayerNorm alone, at
+   ViT-B's shape, the main path's, for its row of the kernels line, and
+   at ViT-L's and ViT-g/14 reg's, logged), each kernel's mean over calls
+   run back to back beside its median (logged only), the attention bound split into
    tensor-core, SFU (exp2) and byte times, kernel 5's epilogue floor (its
    main loop's instructions per similarity from the SASS over the dispatch
    and pipe rates), the bare fp32 ``torch.bmm`` beside kernels 2 and 4 with
@@ -188,7 +194,8 @@ Phases, one flushed line each with elapsed seconds:
    4,096 random descriptors, kernel 2 once a chunk of 16), two of its chunks
    and a chunk of matching descriptors against the plain matcher index for
    index; (b) ``torch_bench_trainstep.py`` (vitb14, batch 2 at 476 x 644;
-   no kernel of the port) and its step sequence again from the same seeds,
+   the add-and-norm kernel at the frozen backbone's 25 boundaries a forward,
+   no other kernel of the port) and its step sequence again from the same seeds,
    bit for bit; (c) ``torch_bench_serve.py`` at 480 x 640 and
    2,048 SIFT keypoints (kernel 2 once a matching chunk); (d)
    ``torch_sift_fidelity_table.py`` on its 8 cases against the committed
@@ -731,7 +738,7 @@ def build_phase():
     build.library()
     seconds = time.perf_counter() - t
     sources = sorted(p.name for p in build.CSRC_DIR.glob("*.cu"))
-    log(f"build: {', '.join(sources)} (5 kernels), one nvcc per source in "
+    log(f"build: {', '.join(sources)} (6 kernels), one nvcc per source in "
         f"parallel and one link, {seconds:.1f} s")
     # The host C++ libraries (database writer, image decoder), one g++ each
     # started together, also built fresh.
@@ -1034,6 +1041,104 @@ def attention_check(B: int, N: int, H: int, seed: int, dtype: str = "bfloat16"):
         if not wrong > bound:
             POWERLESS.append(f"attention {label} '{name}': {wrong} <= {bound}")
     return err
+
+
+# The add-and-norm kernel's shapes on the extract path: a batch of two
+# 1190 x 1596 images at ViT-B's width (the main path's, and the wire, int8
+# and parallel paths'), at ViT-L's and at ViT-g/14 reg's (4 registers more
+# a image).  Its x_new equals the plain version's; its y, rounded to
+# bf16, may differ from the plain y on at most ADD_NORM_SHARE of the
+# elements (another f32 sum order of the mean and variance), each within
+# one bf16 step at the larger of |y| and 2^-8 (below that, the f32 rounding
+# of terms of order 1 that cancel to a value near 0 spans many bf16 steps
+# of the value).
+ADD_NORM_SHAPES = {"vitb14": (IMAGE_BATCH * TOKENS, 768),
+                   "vitl14": (IMAGE_BATCH * TOKENS, 1024),
+                   "vitg14reg": (IMAGE_BATCH * (TOKENS + 4), 1536)}
+ADD_NORM_SHARE = 1e-4
+
+
+def add_norm_inputs(T: int, D: int, seed: int, with_branch: bool = True,
+                    out_dtype: str = "bfloat16"):
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = (torch.randn(T, D, generator=g, device=DEVICE) * 2 + 0.5).to(torch.bfloat16)
+    branch = (torch.randn(T, D, generator=g, device=DEVICE) * 4).to(torch.bfloat16)
+    gamma = 0.1 * torch.randn(D, generator=g, device=DEVICE)
+    w = 1 + 0.2 * torch.randn(D, generator=g, device=DEVICE)
+    b = 0.2 * torch.randn(D, generator=g, device=DEVICE)
+    if not with_branch:
+        branch = gamma = None
+    return x, branch, gamma, w, b, 1e-6, getattr(torch, out_dtype)
+
+
+def wrong_add_norm_f32_scale(x, branch, gamma, w, b, eps, out_dtype):
+    """Known-wrong add-and-norm: LayerScale and the add in f32, one rounding."""
+    import torch.nn.functional as F
+
+    x_new = (x.float() + branch.float() * gamma).to(x.dtype)
+    return x_new, F.layer_norm(x_new.float(), (x.shape[-1],), w, b, eps).to(out_dtype)
+
+
+def wrong_add_norm_unbiased(x, branch, gamma, w, b, eps, out_dtype):
+    """Known-wrong add-and-norm: the unbiased variance."""
+    from vit_colmap_tpu_torch.kernels import add_norm
+
+    x_new, _ = add_norm.add_norm_plain(x, branch, gamma, w, b, eps, out_dtype)
+    xf = x_new.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=True)
+    return x_new, (w * ((xf - mean) / (var + eps).sqrt()) + b).to(out_dtype)
+
+
+WRONG_ADD_NORM = {"LayerScale in f32": wrong_add_norm_f32_scale,
+                  "unbiased variance": wrong_add_norm_unbiased}
+
+
+def add_norm_misses(x_new, y, ref_x, ref_y) -> tuple[bool, int, float]:
+    """Whether ``(x_new, y)`` misses the plain version's by the contract, how
+    many elements of y lie beyond one bf16 step, and the share not equal."""
+    import torch
+
+    yb, rb = y.to(torch.bfloat16).float(), ref_y.to(torch.bfloat16).float()
+    _, exponent = torch.frexp(rb.abs().clamp_min(2.0**-8))
+    beyond = int(((yb - rb).abs() > torch.ldexp(torch.ones_like(rb), exponent - 8)).sum())
+    share = (yb != rb).float().mean().item()
+    return (not torch.equal(x_new, ref_x) or beyond > 0 or share > ADD_NORM_SHARE), beyond, share
+
+
+def add_norm_check(T: int, D: int, seed: int) -> float:
+    """The add-and-norm kernel against its plain version, with and without a
+    branch, into bf16 and f32, and its known-wrong variants against the same
+    contract; returns the largest |y - plain y|."""
+    from vit_colmap_tpu_torch.kernels import add_norm
+
+    worst = 0.0
+    for with_branch in (True, False):
+        for out in ("bfloat16", "float32"):
+            args = add_norm_inputs(T, D, seed, with_branch, out)
+            x_new, y = add_norm.add_norm(*args)
+            sync()
+            ref_x, ref_y = add_norm.add_norm_plain(*args)
+            missed, beyond, share = add_norm_misses(x_new, y, ref_x, ref_y)
+            err = (y.float() - ref_y.float()).abs().max().item()
+            label = f"({T}, {D}) {'branch' if with_branch else 'no branch'} -> {out}"
+            check(not missed, f"add_norm {label}: x_new equal {bool((x_new == ref_x).all())}, "
+                  f"y off on {share:.2e} of elements, {beyond} beyond one bf16 step")
+            log(f"kernels: add_norm {label}: x_new bit for bit, y off on {share:.2e} of "
+                f"elements (<= {ADD_NORM_SHARE}), each within one bf16 step, max |kernel - "
+                f"plain| {err:.3g}")
+            worst = max(worst, err)
+    args = add_norm_inputs(T, D, seed)
+    ref_x, ref_y = add_norm.add_norm_plain(*args)
+    for name, fn in WRONG_ADD_NORM.items():
+        missed, beyond, share = add_norm_misses(*fn(*args), ref_x, ref_y)
+        log(f"kernels: known-wrong add_norm '{name}' ({T}, {D}): y off on {share:.2e} of "
+            f"elements, {beyond} beyond one bf16 step (must miss)")
+        if not missed:
+            POWERLESS.append(f"add_norm ({T}, {D}) '{name}'")
+    return worst
 
 
 def wrong_heads_no_log2e(q, k, v, sm_scale: float):
@@ -1369,8 +1474,10 @@ def slice_phase(work: Path):
     log(f"slice: reconstruction (no quality bar: shifted copies of one texture) "
         f"{report['reconstruction_s']} s, {report.get('registered_images', 0)} registered "
         f"images, {report.get('points3d', 0)} points, {len(pipeline.reconstructions)} models")
-    expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS,
+    expect_launches(launches, {**backbone_launches(BACKBONE_LAYERS),
                                "match_topk2_colmax": MATCH_BATCHES}, "main path")
+    log(f"slice: extraction launches kernel 1 {launches['attention_qkv']} and add-and-norm "
+        f"{launches['add_norm']} times ({BACKBONE_LAYERS // 12} forwards of 12 blocks)")
     return pipeline, report, launches
 
 
@@ -1385,6 +1492,13 @@ def verified_pairs(db_path: Path) -> dict:
 
 def model_sizes(recs: dict) -> list:
     return [(len(r.images), len(r.points3D)) for r in recs.values()]
+
+
+def backbone_launches(layers: int, depth: int = 12, kernel: str = "attention_qkv") -> dict:
+    """Launches of the backbone forwards that launch the attention
+    ``kernel`` ``layers`` times at ``depth`` blocks: it once a block, and
+    the add-and-norm kernel at each forward's 1 + 2 * depth boundaries."""
+    return {kernel: layers, "add_norm": layers // depth * (2 * depth + 1)}
 
 
 def expect_launches(launches: dict, expected: dict, path: str) -> None:
@@ -1680,7 +1794,8 @@ def fixedmax_path(work: Path):
     wall = time.perf_counter() - t
     launches = dict(counts)
     log(f"paths: (a) fixedmax extraction in {wall:.1f} s, launches {launches}")
-    expect_launches(launches, {"fixed_max_attention": BACKBONE_LAYERS},
+    expect_launches(launches, backbone_launches(BACKBONE_LAYERS,
+                                                kernel="fixed_max_attention"),
                     "(a) fixedmax extraction")
     check_tokens(extractor, work / "images", "fixed_max_attention",
                  attention.fixed_max_attention_plain, WRONG_HEAD_MAJOR, "paths: (a)")
@@ -2640,7 +2755,7 @@ def wire_phase(work: Path, rgb_extractor, weights: Path) -> dict:
         yuv.extract(img_dir, work / "wire.db", CameraConfig().model)
     sync()
     launches = dict(counts)
-    expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS}, "wire")
+    expect_launches(launches, backbone_launches(BACKBONE_LAYERS), "wire")
     batch = rgb[:IMAGE_BATCH]
     a = rgb_extractor.dense_features(batch).float().reshape(-1, 768)
     b = yuv.dense_features(yuv.to_wire(batch)).float().reshape(-1, 768)
@@ -2848,7 +2963,7 @@ def trainable_phase(work: Path, vit_extractor) -> dict:
     sync()
     launches = dict(counts)
     log(f"trainable: Pipeline.run report {report}, launches {launches}")
-    expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS // 2,
+    expect_launches(launches, {**backbone_launches(BACKBONE_LAYERS // 2),
                                "match_topk2_colmax": MATCH_BATCHES}, "trainable path")
     check(pipeline.config.matching.descriptor_encoding == "signed",
           "trainable: descriptors not matched as signed")
@@ -3011,7 +3126,7 @@ def vitg14_phase(work: Path) -> dict:
     forward_s = time.perf_counter() - t
     launches = dict(counts)
     hook.remove()
-    expect_launches(launches, {"attention_qkv": cfg.depth}, "vitg14")
+    expect_launches(launches, backbone_launches(cfg.depth, cfg.depth), "vitg14")
     log(f"vitg14: {n_params / 1e9:.3f} B parameters ({cfg.depth} layers, {cfg.num_heads} "
         f"heads), built in {init_s:.1f} s; one batch of {IMAGE_BATCH} at {HEIGHT}x{WIDTH} in "
         f"{forward_s:.2f} s (first call), launches {launches}")
@@ -3143,7 +3258,7 @@ def registers_phase(work: Path) -> dict:
     tok = tokens(imgs)
     sync()
     launches = dict(counts)
-    expect_launches(launches, {"attention_qkv": cfg.depth}, "registers")
+    expect_launches(launches, backbone_launches(cfg.depth, cfg.depth), "registers")
     check(tok.shape == (IMAGE_BATCH, HEIGHT // 14, WIDTH // 14, 768),
           f"registers: patch tokens {tuple(tok.shape)}")
     check_tokens(types.SimpleNamespace(dense_features=tokens), work / "images",
@@ -3241,7 +3356,7 @@ def int8_phase(work: Path, bf16_extractor, weights: Path) -> dict:
     ex.extract(work / "images", work / "int8.db", camera.model, camera.params)
     sync()
     launches = dict(counts)
-    expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS}, "int8 extraction")
+    expect_launches(launches, backbone_launches(BACKBONE_LAYERS), "int8 extraction")
     imgs = phase_images(work)
     layer_worst = layer_attention_check(ex, imgs, "int8")
     check_tokens(ex, work / "images", "attention_qkv", attention.attention_qkv_plain,
@@ -3569,7 +3684,7 @@ def train_phase(work: Path, weights: Path) -> dict:
     launches = dict(counts)
     log(f"train: Pipeline.run(trainable_vit) on the fine-tuned best_model, report {report}, "
         f"launches {launches}")
-    expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS // 2,
+    expect_launches(launches, {**backbone_launches(BACKBONE_LAYERS // 2),
                                "match_topk2_colmax": MATCH_BATCHES}, "train path")
     check_matches(work / "train.db", plain_fused, "train")
     ex = next(iter(pipeline._extractors.values()))
@@ -3781,7 +3896,7 @@ def parallel_phase(work: Path, weights: Path, extractor, data: Path, heads_dir: 
     ex2.extract(work / "images", work / "par.db", CameraConfig().model)
     sync()
     launches["extract"] = dict(counts)
-    expect_launches(launches["extract"], {"attention_qkv": 12 * NUM_IMAGES},
+    expect_launches(launches["extract"], backbone_launches(12 * NUM_IMAGES),
                     "parallel extraction (one image a slot)")
     counts.clear()
     stats = match_exhaustive(work / "par.db", cfg, device_descriptors=ex2.device_cache,
@@ -3948,7 +4063,7 @@ def hybrid_phase(work: Path, vit_extractor, weights: Path) -> dict:
     wall = time.perf_counter() - t
     launches = dict(counts)
     log(f"hybrid: Pipeline.run in {wall:.1f} s, report {report}, launches {launches}")
-    expect_launches(launches, {"attention_qkv": BACKBONE_LAYERS // 2,
+    expect_launches(launches, {**backbone_launches(BACKBONE_LAYERS // 2),
                                "match_topk2_colmax": MATCH_BATCHES}, "hybrid path")
     db_counts = check_database(work / "hybrid.db", "hybrid")
     hybrid = next(iter(pipeline._extractors.values()))
@@ -3994,9 +4109,9 @@ def serve_phase(work: Path, weights: Path) -> dict:
           f"serve: job results {[r.ok for r in results]}")
     check(len(server.pipeline._extractors) == 1,
           f"serve: {len(server.pipeline._extractors)} extractors built")
-    expect_launches(launches[0], {"attention_qkv": BACKBONE_LAYERS,
+    expect_launches(launches[0], {**backbone_launches(BACKBONE_LAYERS),
                                   "match_topk2_colmax": MATCH_BATCHES}, "serve job 1")
-    expect_launches(launches[1], {"attention_qkv": BACKBONE_LAYERS // 2,
+    expect_launches(launches[1], {**backbone_launches(BACKBONE_LAYERS // 2),
                                   "match_topk2_colmax": MATCH_BATCHES}, "serve job 2")
     rows = []
     for i in range(2):
@@ -4201,10 +4316,10 @@ def native_io_phase(work: Path, weights: Path) -> dict:
     pngs = sorted(img_dir.iterdir())
     pipeline = Pipeline(yuv_config("yuv420c4"), device=DEVICE)
     png_runs = [counted_run(pipeline, img_dir, f"native_png_{k}") for k in range(2)]
-    expect_launches(png_runs[0]["launches"], {"attention_qkv": BACKBONE_LAYERS,
+    expect_launches(png_runs[0]["launches"], {**backbone_launches(BACKBONE_LAYERS),
                                               "match_topk2_colmax": MATCH_BATCHES},
                     "native-io png run 1")
-    expect_launches(png_runs[1]["launches"], {"attention_qkv": BACKBONE_LAYERS // 2,
+    expect_launches(png_runs[1]["launches"], {**backbone_launches(BACKBONE_LAYERS // 2),
                                               "match_topk2_colmax": MATCH_BATCHES},
                     "native-io png run 2")
     check(png_runs[0]["decodes"] == {"i420": NUM_IMAGES},
@@ -4295,7 +4410,7 @@ def native_io_phase(work: Path, weights: Path) -> dict:
                          ("yuv420c4", {"i420": NUM_IMAGES, "rgb": NUM_IMAGES})):
         run = counted_run(Pipeline(yuv_config(fmt), device=DEVICE), jpg_dir,
                           f"native_jpeg_{fmt}")
-        expect_launches(run["launches"], {"attention_qkv": BACKBONE_LAYERS,
+        expect_launches(run["launches"], {**backbone_launches(BACKBONE_LAYERS),
                                           "match_topk2_colmax": MATCH_BATCHES},
                         f"native-io jpeg {fmt}")
         check(run["decodes"] == decodes,
@@ -4446,6 +4561,25 @@ def times_phase(pipeline, work: Path, img_dir: Path, match_inputs_main,
         f"at {max_mhz:.0f} MHz, bytes {split['bytes_ms']:.4f} ms; f32 (SIMT body) "
         f"kernel 1 {f32_ms['attention_qkv']:.3f} ms, kernel 3 "
         f"{f32_ms['fixed_max_attention']:.3f} ms")
+    # The add-and-norm kernel at a batch of each extract shape's boundaries
+    # with a branch, the `kernels` row at the main path's (ViT-B); its
+    # library yardstick is PyTorch's
+    # LayerNorm alone on the bf16 stream (bf16 affine: 4 B an element, no
+    # add).  The bound counts x and the branch read, x_new and y written.
+    from vit_colmap_tpu_torch.kernels import add_norm
+
+    for tag, (T, Dn) in ADD_NORM_SHAPES.items():
+        args = add_norm_inputs(T, Dn, seed=11)
+        x, _, _, w, b, eps, _ = args
+        w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        out["add_norm" if tag == "vitb14" else f"add_norm.{tag}"] = {
+            **kernel_ms(lambda: add_norm.add_norm(*args)),
+            "plain_ms": cuda_ms(lambda: add_norm.add_norm_plain(*args), 10),
+            "library_ms": cuda_ms(lambda: F.layer_norm(x, (Dn,), w16, b16, eps), 10),
+            "flops": 0.0,
+            "bytes": 8.0 * T * Dn + 12 * Dn,
+            "peak": PEAK_BF16_FLOPS,
+        }
     # Kernels 2 and 4 at the main path's shape: the 28 pairs of the slice's
     # database descriptors (P, 4096, 128).
     d1, d2, v1, v2 = match_inputs_main
@@ -4698,7 +4832,7 @@ def hpatches_eval(work: Path, weights: Path) -> dict:
             teval.mutual_match = real_match
         matched = sum(1 for f1, f2, _ in pairs if len(f1[0]) and len(f2[0]))
         layers = 12 * 2 * EVAL_IMAGES if name != "sift" else 0
-        expect_launches(launches[name], {"attention_qkv": layers,
+        expect_launches(launches[name], {**backbone_launches(layers),
                                          "match_topk2_colmax": matched}, f"eval {name}")
         for f1, f2, out in pairs:
             plain = real_match(f1, f2, DEVICE, plain_pair_matcher)
@@ -4774,8 +4908,12 @@ def bakeoff_run(work: Path, weights: Path) -> dict:
         ttve.TrainableViTExtractor._load_checkpoint = real_load
         metrics_mod.MetricsExtractor.extract_all_metrics = real_metrics
     log(f"bakeoff: {wall:.1f} s, launches {launches}")
+    # The trainer's frozen ViT-B/14 adds forwards (PyTorch's fused
+    # attention) to the extractors' (kernel 1): 25 add-and-norm launches each.
+    norms = launches.get("add_norm", 0)
     check(launches.get("attention_qkv", 0) > 0 and launches.get("match_topk2_colmax", 0) > 0
-          and set(launches) <= {"attention_qkv", "match_topk2_colmax"},
+          and set(launches) <= {"attention_qkv", "match_topk2_colmax", "add_norm"}
+          and norms % 25 == 0 and norms >= launches["attention_qkv"] // 12 * 25,
           f"bakeoff: launches {launches}")
     saved = json.loads((out / "QUALITY.json").read_text())
     md = (out / "QUALITY.md").read_text()
@@ -4869,7 +5007,8 @@ def eval_phase(work: Path, weights: Path) -> dict:
 # two of its chunks and one chunk of matching descriptors held against the
 # plain matcher on the card index for index; torch_bench_trainstep.py at its
 # defaults (vitb14, batch 2 at 476 x 644, top-k 256; PyTorch's fused
-# attention, no kernel of the port) with TRAINSTEP_STEPS timed steps, and
+# attention, the add-and-norm kernel its only kernel of the port) with
+# TRAINSTEP_STEPS timed steps, and
 # its step sequence run again from the same seeds, the two bit for bit;
 # torch_bench_serve.py at 480 x 640 and 2,048 SIFT keypoints with
 # SERVE_SCENES scenes of SERVE_IMAGES views (kernel 2 once a matching
@@ -4940,7 +5079,8 @@ def bench_matching_run() -> dict:
 
 
 def bench_trainstep_run() -> dict:
-    """(b) The training-step benchmark (no kernel of the port), then its step
+    """(b) The training-step benchmark (the add-and-norm kernel its only
+    kernel of the port), then its step
     sequence again from the same seeds, which must equal the benchmark's
     bit for bit (losses and heads)."""
     import torch
@@ -4953,7 +5093,9 @@ def bench_trainstep_run() -> dict:
     out, run = tbt.bench(**TRAINSTEP, steps=TRAINSTEP_STEPS, device=DEVICE)
     sync()
     launches = dict(counts)
-    expect_launches(launches, {}, "bench_trainstep")
+    # The frozen backbone twice a step (each image of the pairs), bf16:
+    # the add-and-norm kernel at its 25 boundaries, no other kernel.
+    expect_launches(launches, {"add_norm": (TRAINSTEP_STEPS + 2) * 2 * 25}, "bench_trainstep")
     losses = run["losses"].tolist()
     check(len(losses) == TRAINSTEP_STEPS + 2 and all(math.isfinite(x) for x in losses),
           f"bench_trainstep: losses {losses}")
@@ -5019,8 +5161,8 @@ def sift_fidelity_run() -> dict:
 
 def visualizers_run() -> dict:
     """(e) The three token visualisers' compute functions at vits14 (random
-    weights) on a rendered pair; PyTorch's fused attention, no kernel of the
-    port."""
+    weights) on a rendered pair; PyTorch's fused attention, the add-and-norm
+    kernel the only kernel of the port."""
     import numpy as np
 
     import scripts.torch_visualize_hpatches_warping as twarp
@@ -5049,7 +5191,8 @@ def visualizers_run() -> dict:
     samp = tsamp.compute(img1, img2, H, feats)
     sync()
     launches = dict(counts)
-    expect_launches(launches, {}, "visualizers")
+    # Two vits14 forwards a visualiser (PyTorch's fused attention), bf16.
+    expect_launches(launches, {"add_norm": 3 * 2 * 25}, "visualizers")
     gh, gw = h // 14, w // 14
     check(inv["valid"].sum() > 0 and np.isfinite(inv["sim"]).all(),
           f"visualizers: {int(inv['valid'].sum())} invariant points")
@@ -5101,7 +5244,7 @@ def bisect_run(work: Path, weights: Path) -> dict:
     layers = 12 * (math.ceil(BISECT_IMAGES / IMAGE_BATCH) * ("asis" in BISECT_VARIANTS)
                    + BISECT_IMAGES * ("siftloc" in BISECT_VARIANTS))
     pairs = BISECT_IMAGES * (BISECT_IMAGES - 1) // 2
-    expect_launches(launches, {"attention_qkv": layers, "match_topk2_colmax":
+    expect_launches(launches, {**backbone_launches(layers), "match_topk2_colmax":
                                len(BISECT_VARIANTS) * math.ceil(pairs / 16)}, "bisect")
     rows = out["variants"]
     log(f"bisect: {BISECT_IMAGES} views at {BISECT_SIZE[0]}x{BISECT_SIZE[1]}: "
@@ -5214,6 +5357,9 @@ def main() -> int:
                         "integer ties 4x4096x4096")),
         "match_topk2": topk2_checks(),
         "match_topk2_int8": int8_checks(),
+        "add_norm": max([add_norm_check(T, D, seed=20 + i)
+                         for i, (T, D) in enumerate(ADD_NORM_SHAPES.values())]
+                        + [add_norm_check(37, 384, seed=22)]),
     }
     for name, err in wide_checks().items():
         errs[name] = max(errs[name], err)
@@ -5272,6 +5418,9 @@ def main() -> int:
         "match_topk2_int8": ("vit_colmap_tpu_torch/csrc/match_topk2_int8.cu",
                              "vit_colmap_tpu/ops/pallas/match_kernel.py:192",
                              path_launches["d"]),
+        "add_norm": ("vit_colmap_tpu_torch/csrc/add_norm.cu",
+                     "none: the JAX package leaves the block boundaries to XLA's fusion",
+                     main_launches),
     }
     # Launches on the paths of this slice and the earlier ones, by kernel.
     paths = {"main": main_launches, "wire": wire["launches"],
@@ -5318,7 +5467,8 @@ def main() -> int:
         f"{scripts['bench_trainstep']['repro']}, "
         f"rates {rates}, "
         f"int8 rows differing from the float matcher {int8_vs_float}, saliency "
-        f"{saliency}, attention bound split {split}, f32 attention ms {f32_ms}, "
+        f"{saliency}, attention bound split {split}, "
+        f"f32 attention ms {f32_ms}, "
         f"matcher times {matcher}, SASS {sass}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

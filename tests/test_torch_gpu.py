@@ -12,7 +12,7 @@ machine that has none of them:
 import pytest
 import torch
 
-from vit_colmap_tpu_torch.kernels import attention, launches, match
+from vit_colmap_tpu_torch.kernels import add_norm, attention, launches, match
 from vit_colmap_tpu_torch.ops import detect, scoring
 from vit_colmap_tpu_torch.ops.matching import prepare_int8_descriptors
 
@@ -986,3 +986,144 @@ def test_two_slots_on_one_card(cuda_device):
         out = build(mesh, True)(desc, valid, i1, i2)
         assert launches["match_topk2_colmax"] == before + 2
         assert torch.equal(out, ref), build.__name__
+
+
+# (width, rows): the backbones' widths at a ViT-L / ViT-B batch of two
+# 1190 x 1596 images (19,382 tokens), ViT-g/14 reg's (19,390) and a ragged
+# 37 rows; then the narrowest and widest widths the kernel takes and one
+# whose last vectors leave lanes idle.
+ADD_NORM_SHAPES = ([(d, t) for d in (384, 768, 1024, 1536) for t in (19_382, 19_390, 37)]
+                   + [(8, 37), (520, 37), (2048, 37)])
+
+
+def _add_norm_args(device, dim, rows, with_branch, out_dtype):
+    g = torch.Generator(device=device).manual_seed(dim * 7 + rows)
+    x = (torch.randn(rows, dim, generator=g, device=device) * 2 + 0.5).to(torch.bfloat16)
+    branch = (torch.randn(rows, dim, generator=g, device=device) * 4).to(torch.bfloat16)
+    gamma = 0.1 * torch.randn(dim, generator=g, device=device)
+    w = 1 + 0.2 * torch.randn(dim, generator=g, device=device)
+    b = 0.2 * torch.randn(dim, generator=g, device=device)
+    if not with_branch:
+        branch = gamma = None
+    return x, branch, gamma, w, b, 1e-6, out_dtype
+
+
+def bf16_off(y, ref):
+    """Which elements of ``y`` and ``ref``, both rounded to bf16, differ, and
+    whether each lies within one bf16 step of ``ref`` at the larger of
+    |ref| and 2^-8: below that the f32 rounding of the terms that cancel to
+    a value near 0 (b and w * (x - mean) * rstd, of order 1) spans many bf16
+    steps of the value itself."""
+    yb, rb = y.to(torch.bfloat16).float(), ref.to(torch.bfloat16).float()
+    _, exponent = torch.frexp(rb.abs().clamp_min(2.0**-8))
+    step = torch.ldexp(torch.ones_like(rb), exponent - 8)
+    return yb != rb, (yb - rb).abs() <= step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("with_branch", [True, False], ids=["branch", "no-branch"])
+@pytest.mark.parametrize("dim,rows", ADD_NORM_SHAPES)
+def test_add_norm_kernel_matches_plain(cuda_device, dim, rows, with_branch, out_dtype):
+    """x_new bit for bit; y, rounded to bf16, equal to the plain version's
+    but on at most 1e-4 of the elements, each of those within one bf16 step
+    (``bf16_off``): the f32 sums of the mean and variance run in another
+    order than PyTorch's."""
+    args = _add_norm_args(cuda_device, dim, rows, with_branch, out_dtype)
+    before = launches["add_norm"]
+    with torch.no_grad():
+        x_new, y = add_norm.add_norm(*args)
+        torch.cuda.synchronize()
+        ref_x, ref_y = add_norm.add_norm_plain(*args)
+    assert launches["add_norm"] == before + 1
+    assert y.dtype == out_dtype and y.shape == (rows, dim)
+    assert torch.equal(x_new, ref_x)
+    differ, within = bf16_off(y, ref_y)
+    assert within.all(), (y[~within], ref_y[~within])
+    assert differ.float().mean().item() <= 1e-4
+    if out_dtype == torch.float32:
+        assert (y - ref_y).abs().max().item() <= 1e-4 * ref_y.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["f32-stream", "width-2056", "grad"])
+def test_add_norm_kernel_refuses(cuda_device, fault):
+    """No fallback: what the kernel does not take raises on the card."""
+    x, branch, gamma, w, b, eps, out = _add_norm_args(cuda_device, 64, 4, True,
+                                                      torch.bfloat16)
+    if fault == "f32-stream":
+        x, branch = x.float(), branch.float()
+    elif fault == "width-2056":
+        x, branch, gamma, w, b, eps, out = _add_norm_args(cuda_device, 2056, 4, True,
+                                                          torch.bfloat16)
+    else:
+        w.requires_grad_(True)
+    with pytest.raises(ValueError):
+        add_norm.add_norm(x, branch, gamma, w, b, eps, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,depth", [("vitb14", 12), ("vitl14", 24)])
+def test_backbone_boundaries_take_add_norm(cuda_device, name, depth, monkeypatch):
+    """An inference forward launches the kernel at its 1 + 2 * depth
+    boundaries (25 for ViT-B, 49 for ViT-L) and no LayerNorm kernel of
+    PyTorch's; its tokens against the same forward through the plain
+    version on the card: per-token cosine at least 0.99."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_colmap_tpu_torch.models import dinov2
+
+    model, _ = dinov2.make_backbone(name, attn_impl="fixedmax_fused",
+                                    generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.ls1.gamma.fill_(0.1)
+            blk.ls2.gamma.fill_(0.1)
+    model = model.to(cuda_device).eval()
+    # 32 x 33 patches: at least 1,024 tokens, so kernel 1 runs too
+    x = torch.randn(2, 448, 462, 3, generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda_device)
+    with torch.no_grad():
+        model(x)  # builds the kernels
+        torch.cuda.synchronize()
+        before = dict(launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = model(x)["x_norm_patchtokens"]
+            torch.cuda.synchronize()
+        counted = {k: launches[k] - before.get(k, 0) for k in ("add_norm", "attention_qkv")}
+        monkeypatch.setattr(add_norm, "add_norm", add_norm.add_norm_plain)
+        ref = model(x)["x_norm_patchtokens"]
+    assert counted == {"add_norm": 1 + 2 * depth, "attention_qkv": depth}
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("add_norm" in k for k in kernels), kernels
+    assert not [k for k in kernels if "layer_norm" in k], kernels
+    assert out.dtype == torch.float32
+    cos = torch.nn.functional.cosine_similarity(out, ref, dim=-1)
+    assert cos.min().item() >= 0.99, (cos.min().item(), cos.mean().item())
+
+
+@pytest.mark.gpu
+def test_grad_recording_forward_keeps_the_plain_ops_on_the_card(cuda_device):
+    """A bf16 forward that records gradients (``--train-backbone``) launches
+    no add-and-norm kernel, and its blocks' and final norm's gradients equal
+    those of the forward before the kernel, run on the card."""
+    from test_torch_add_norm import _forward_before, _images, _model
+
+    model = _model({"attn_impl": "xla"}).to(cuda_device)
+    x = _images().to(cuda_device)
+
+    def grads(forward):
+        model.zero_grad()
+        out = forward(x)
+        (out["x_norm_patchtokens"].square().mean() + out["x_norm_clstoken"].sum()).backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()
+                if n.startswith(("blocks.", "norm."))}
+
+    before = launches["add_norm"]
+    got = grads(model)
+    torch.cuda.synchronize()
+    assert launches["add_norm"] == before
+    ref = grads(lambda t: _forward_before(model, t))
+    for name in got:
+        assert torch.equal(got[name], ref[name]), name

@@ -268,7 +268,8 @@ def test_vitg14_reg_extracts_through_kernel_1_on_the_card():
     """``ViTExtractor(backbone="vitg14_reg")`` on the card: 1,136,485,376
     parameters, one batch of two 1190 x 1596 images through kernel 1 once a
     block (40 launches at 24 heads) with one ``vc.backbone.mlp`` span a
-    block, 4,096 keypoints an image on the 85 x 114 patch grid."""
+    block and the add-and-norm kernel at each of its 81 boundaries, 4,096
+    keypoints an image on the 85 x 114 patch grid."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU; run with `pytest -m gpu` on the GPU machine")
     from vit_colmap_tpu_torch.kernels import launches
@@ -284,6 +285,7 @@ def test_vitg14_reg_extracts_through_kernel_1_on_the_card():
     out = []
     spans = _recorded_spans(lambda: out.append(ex.extract_batch(imgs)))
     assert launches["attention_qkv"] == 40
+    assert launches["add_norm"] == 81
     assert [s[0] for s in spans].count("vc.backbone.mlp") == 40
     xy, _sc, valid, desc = out[0][:4]
     assert valid.sum(axis=1).tolist() == [4096, 4096] and desc.shape == (2, 4096, 128)

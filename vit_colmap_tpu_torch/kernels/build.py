@@ -52,6 +52,8 @@ SIGNATURES = {
     # a1, a2, s1, s2, inv1, inv2, coef, best, second, best_idx, pairs, n, m,
     # dim, stream
     "match_topk2_int8_launch": [_P] * 10 + [_I] * 4 + [_P],
+    # x, branch, gamma, w, b, x_new, y, rows, dim, eps, out_f32, stream
+    "add_norm_launch": [_P] * 7 + [_I] * 2 + [ctypes.c_float, _I, _P],
 }
 
 

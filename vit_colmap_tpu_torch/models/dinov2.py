@@ -26,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vit_colmap_tpu_torch.device import exact_f32_convolutions
+from vit_colmap_tpu_torch.kernels import add_norm as add_norm_kernel
 from vit_colmap_tpu_torch.kernels import attention as attention_kernel
 from vit_colmap_tpu_torch.utils.profiling import span
 
@@ -140,19 +141,28 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tens
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
-def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
-    # Statistics in f32, result in ``dtype`` (flax LayerNorm with dtype=bf16).
-    y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
-    return y.to(dtype)
-
-
 class LayerScale(nn.Module):
+    """The per-channel ``gamma`` a block's branch is scaled by before the
+    residual add, which :func:`_add_norm` applies."""
+
     def __init__(self, dim: int, init: float = 1e-5):
         super().__init__()
         self.gamma = nn.Parameter(torch.full((dim,), float(init)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.gamma.to(x.dtype)
+
+def _add_norm(x: torch.Tensor, branch: Optional[torch.Tensor], ls: Optional[LayerScale],
+              norm: nn.LayerNorm, out_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block boundary: the residual stream ``x + ls(branch)`` (``x``
+    without a branch) and ``norm`` of it in ``out_dtype``, statistics in f32
+    (flax LayerNorm with dtype=bf16), by the add-and-norm kernel where
+    :func:`~vit_colmap_tpu_torch.kernels.add_norm.takes_kernel` says so (a
+    bf16 stream on the card whose forward records no gradient), by its
+    plain version otherwise."""
+    gamma = None if ls is None else ls.gamma
+    args = (x, branch, gamma, norm.weight, norm.bias, norm.eps, out_dtype)
+    if add_norm_kernel.takes_kernel(*args[:5]):
+        return add_norm_kernel.add_norm(*args)
+    return add_norm_kernel.add_norm_plain(*args)
 
 
 def _use_sdpa(impl: str, n_tokens: int, device: torch.device) -> bool:
@@ -256,10 +266,14 @@ class Block(nn.Module):
         self.mlp = Mlp(cfg)
         self.ls2 = LayerScale(cfg.embed_dim, cfg.layerscale_init)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.cfg.dtype
-        x = x + self.ls1(self.attn(_layer_norm(x, self.norm1, dt)))
-        return x + self.ls2(self.mlp(_layer_norm(x, self.norm2, dt)))
+    def forward(self, x: torch.Tensor, h: torch.Tensor, next_norm: nn.LayerNorm,
+                out_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """The block on the residual stream ``x`` and ``h = norm1(x)``:
+        returns the new stream and ``next_norm`` of it in ``out_dtype`` (the
+        next block's ``norm1``, or the backbone's final ``norm``), each of
+        its two boundaries one :func:`_add_norm`."""
+        x, h = _add_norm(x, self.attn(h), self.ls1, self.norm2, self.cfg.dtype)
+        return _add_norm(x, self.mlp(h), self.ls2, next_norm, out_dtype)
 
 
 def keys_cubic(x: np.ndarray) -> np.ndarray:
@@ -368,10 +382,13 @@ class DinoV2(nn.Module):
         if c.num_register_tokens:  # between cls and the patches, after the pos-embed
             reg = self.register_tokens.to(c.dtype).expand(B, -1, -1)
             t = torch.cat([t[:, :1], reg, t[:, 1:]], dim=1)
-        for blk in self.blocks:
-            t = blk(t)
-        t = F.layer_norm(t.float(), self.norm.normalized_shape, self.norm.weight,
-                         self.norm.bias, self.norm.eps)
+        # 1 + 2 * depth boundaries: norm1 of the tokens, then two a block,
+        # the last one into the final norm's f32.
+        norms = [blk.norm1 for blk in self.blocks] + [self.norm]
+        out_dtypes = [c.dtype] * c.depth + [torch.float32]
+        x, t = _add_norm(t, None, None, norms[0], out_dtypes[0])
+        for blk, norm, out_dtype in zip(self.blocks, norms[1:], out_dtypes[1:]):
+            x, t = blk(x, t, norm, out_dtype)
         return {
             "x_norm_clstoken": t[:, 0],
             "x_norm_patchtokens": t[:, 1 + c.num_register_tokens:],
