@@ -1741,10 +1741,10 @@ def check_matches(db_path: Path, plain_fn, label: str):
     pipeline/match.py does; returns the float inputs and the uint8 ones."""
     import numpy as np
 
-    from vit_colmap_tpu_torch.ops.matching import normalize_descriptors
+    from vit_colmap_tpu_torch.ops.interpolate import l2_normalize
 
     q1, q2, v1, v2, stored = db_pairs(db_path)
-    d1, d2 = (normalize_descriptors(q.float() / 127.5 - 1.0) for q in (q1, q2))
+    d1, d2 = (l2_normalize(q.float() / 127.5 - 1.0) for q in (q1, q2))
     inputs = (d1, d2, v1, v2)
     plain = plain_fn(*inputs).cpu().numpy()
     for k, (a, b) in enumerate(stored):

@@ -35,15 +35,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 def make_descriptors(images: int, keypoints: int, dim: int, device):
     """The JAX script's descriptors: ``default_rng(0)`` normals, normalized
-    with ``ops/matching.normalize_descriptors``, on ``device``; and the
+    with ``ops/interpolate.l2_normalize``, on ``device``; and the
     all-valid mask."""
     import torch
 
-    from vit_colmap_tpu_torch.ops.matching import normalize_descriptors
+    from vit_colmap_tpu_torch.ops.interpolate import l2_normalize
 
     rng = np.random.default_rng(0)
     raw = rng.standard_normal((images, keypoints, dim)).astype(np.float32)
-    desc = normalize_descriptors(torch.from_numpy(raw)).to(device)
+    desc = l2_normalize(torch.from_numpy(raw)).to(device)
     return desc, torch.ones((images, keypoints), dtype=torch.bool, device=device)
 
 

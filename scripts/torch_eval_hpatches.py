@@ -131,11 +131,8 @@ def mutual_match(f1, f2, device=None, matcher=None):
     import torch
 
     from vit_colmap_tpu_torch.device import resolve_device
-    from vit_colmap_tpu_torch.ops.matching import (
-        compact_matches,
-        get_pair_matcher,
-        normalize_descriptors,
-    )
+    from vit_colmap_tpu_torch.ops.interpolate import l2_normalize
+    from vit_colmap_tpu_torch.ops.matching import compact_matches, get_pair_matcher
 
     (k1, d1, enc), (k2, d2, _) = f1, f2
     if len(k1) == 0 or len(k2) == 0:
@@ -151,7 +148,7 @@ def mutual_match(f1, f2, device=None, matcher=None):
         dp[: len(x)] = x
         v = np.zeros(n, bool)
         v[: len(x)] = True
-        return (normalize_descriptors(torch.from_numpy(dp).to(dev))[None],
+        return (l2_normalize(torch.from_numpy(dp).to(dev))[None],
                 torch.from_numpy(v).to(dev)[None])
 
     d1p, v1 = prep(d1)

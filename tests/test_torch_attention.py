@@ -82,6 +82,31 @@ def test_rejects_non64_head_dim_and_odd_heads(width, heads):
         attention.attention_qkv(qkv, heads, 0.125)
 
 
+@pytest.mark.parametrize("dim,heads,head_dim,takes_qkv,takes_heads", [
+    (768, 12, 64, True, True), (1024, 16, 64, True, True), (1536, 24, 64, True, True),
+    (192, 3, 64, False, True), (128, 4, 32, False, True), (1536, 16, 96, False, False),
+    (384, 6, 64, True, True), (64, 1, 64, False, True),
+])
+def test_takes_predicates_are_each_kernels_head_layout(dim, heads, head_dim, takes_qkv,
+                                                       takes_heads):
+    """Kernel 1 takes head dim 64 and an even head count, kernel 3 head dims
+    up to 64; each wrapper's check refuses what its predicate refuses."""
+    assert attention.takes_attention_qkv(dim, heads) is takes_qkv
+    assert attention.takes_fixed_max_attention(head_dim) is takes_heads
+    qkv = torch.zeros(1, 8, 3 * dim)
+    if takes_qkv:
+        attention._check_layout(qkv, heads)
+    else:
+        with pytest.raises(ValueError, match="head_dim == 64 and an even head count"):
+            attention._check_layout(qkv, heads)
+    z = torch.zeros(1, heads, 8, head_dim)
+    if takes_heads:
+        attention._check_heads(z, z, z)
+    else:
+        with pytest.raises(ValueError, match="head_dim <= 64"):
+            attention._check_heads(z, z, z)
+
+
 def test_cpu_tensor_takes_plain_version():
     launches.clear()
     attention.attention_qkv(torch.zeros(1, 64, 3 * 128), 2, 0.125)

@@ -58,7 +58,8 @@ from vit_colmap_tpu_torch.models.convert import jax_dinov2_to_torch, jax_feature
 from vit_colmap_tpu_torch.models import dinov2 as tdino
 from vit_colmap_tpu_torch.models.dinov2 import make_backbone
 from vit_colmap_tpu_torch.models.feature_model import make_feature_model
-from vit_colmap_tpu_torch.ops.matching import match_pair, normalize_descriptors
+from vit_colmap_tpu_torch.ops.interpolate import l2_normalize
+from vit_colmap_tpu_torch.ops.matching import match_pair
 from vit_colmap_tpu_torch.training.checkpoint import save_checkpoint
 from vit_colmap_tpu_torch.utils import homography_eval as the
 from vit_colmap_tpu_torch.utils.image_io import resize_linear
@@ -156,10 +157,8 @@ def test_match_pair_is_one_batch_row():
     from vit_colmap_tpu_torch.ops.matching import match_pairs_batched
 
     rng = np.random.default_rng(4)
-    d1 = normalize_descriptors(torch.from_numpy(rng.standard_normal((3, 12, 64)).astype(
-        np.float32)))
-    d2 = normalize_descriptors(torch.from_numpy(rng.standard_normal((3, 12, 64)).astype(
-        np.float32)))
+    d1 = l2_normalize(torch.from_numpy(rng.standard_normal((3, 12, 64)).astype(np.float32)))
+    d2 = l2_normalize(torch.from_numpy(rng.standard_normal((3, 12, 64)).astype(np.float32)))
     valid = torch.ones(3, 12, dtype=torch.bool)
     batched = match_pairs_batched(d1, d2, valid, valid)
     for p in range(3):

@@ -951,7 +951,7 @@ def test_two_slots_on_one_card(cuda_device):
 
     from vit_colmap_tpu_torch.features.vit_extractor import ViTExtractor
     from vit_colmap_tpu_torch.ops.interpolate import fit_pca
-    from vit_colmap_tpu_torch.ops.matching import normalize_descriptors
+    from vit_colmap_tpu_torch.ops.interpolate import l2_normalize
     from vit_colmap_tpu_torch.parallel.mesh import get_mesh
     from vit_colmap_tpu_torch.pipeline.match import (
         _build_desc_sharded_matcher,
@@ -973,7 +973,7 @@ def test_two_slots_on_one_card(cuda_device):
         assert all(np.array_equal(a[i], b[0]) for a, b in zip(both, alone))
 
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    desc = normalize_descriptors(torch.randn(6, 512, 128, device=cuda_device, generator=g))
+    desc = l2_normalize(torch.randn(6, 512, 128, device=cuda_device, generator=g))
     valid = torch.ones(6, 512, dtype=torch.bool, device=cuda_device)
     valid[5] = False
     pairs = [(i, j) for i in range(6) for j in range(i + 1, 6)] + [(0, 0)]

@@ -182,6 +182,14 @@ def test_compaction_round_trip():
         )
 
 
+@pytest.mark.parametrize("dim,takes", [(128, True), (256, True), (384, True),
+                                       (64, False), (200, False), (130, False)])
+def test_takes_width_is_a_multiple_of_the_width_step(dim, takes):
+    """The kernels' width rule; the pair matcher routes by it, and the
+    kernels' check on the card refuses what it refuses."""
+    assert match.takes_width(dim) is takes
+
+
 def test_cpu_tensor_takes_plain_version():
     launches.clear()
     d1, d2, v1, v2 = _case("random", P=1, N=128, M=128)

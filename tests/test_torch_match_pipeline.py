@@ -26,11 +26,8 @@ import pytest
 import torch
 
 from vit_colmap_tpu_torch.database import ColmapDatabase
-from vit_colmap_tpu_torch.ops.matching import (
-    compact_matches,
-    match_pairs_batched,
-    normalize_descriptors,
-)
+from vit_colmap_tpu_torch.ops.interpolate import l2_normalize
+from vit_colmap_tpu_torch.ops.matching import compact_matches, match_pairs_batched
 from vit_colmap_tpu_torch.parallel.mesh import get_mesh
 from vit_colmap_tpu_torch.pipeline.match import match_exhaustive
 from vit_colmap_tpu_torch.utils.config import MatchingConfig
@@ -93,7 +90,7 @@ def reference_table(descs, cfg: MatchingConfig):
     """Each pair on its own through the plain matcher and
     ``compact_matches``, cut to ``max_num_matches``; pairs with no match
     left out."""
-    dec = [normalize_descriptors(torch.from_numpy(d).float() / 127.5 - 1.0) for d in descs]
+    dec = [l2_normalize(torch.from_numpy(d).float() / 127.5 - 1.0) for d in descs]
     out = {}
     for i in range(len(descs)):
         for j in range(i + 1, len(descs)):

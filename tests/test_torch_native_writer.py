@@ -187,22 +187,6 @@ def host_dir(tmp_path):
     return d
 
 
-def test_key_covers_sources_headers_flags_and_compiler(host_dir):
-    flags = host_build.GXX_FLAGS + ["-l:libsqlite3.so.0"]
-    key = host_build.cache_key(host_dir, flags, "g++ 12.2")
-    assert key == host_build.cache_key(host_dir, list(flags), "g++ 12.2") and len(key) == 16
-    assert host_build.cache_key(host_dir, flags, "g++ 13.3") != key
-    assert host_build.cache_key(host_dir, flags + ["-g"], "g++ 12.2") != key
-    header = host_dir / "jpeg_backend.h"
-    header.write_text(header.read_text() + "\n")
-    edited = host_build.cache_key(host_dir, flags, "g++ 12.2")
-    assert edited != key
-    (host_dir / "notes.txt").write_text("not a source")
-    assert host_build.cache_key(host_dir, flags, "g++ 12.2") == edited
-    (host_dir / "db_writer.cc").rename(host_dir / "renamed.cc")
-    assert host_build.cache_key(host_dir, flags, "g++ 12.2") != edited
-
-
 def test_build_once_and_compile_errors_raise_with_the_log(port_lib, host_dir, tmp_path,
                                                           monkeypatch):
     monkeypatch.setattr(host_build, "HOST_DIR", host_dir)

@@ -6,9 +6,9 @@ frozen DINOv2 backbone; a sigmoid score map, max-pool NMS, top-k (lower
 index first among ties) with the threshold and a ``min_keypoints`` floor,
 sub-cell offsets from the offset head ("head"), a quadratic fit on the
 score map ("quad") or none, quarter-resolution cells scaled x4 back to
-pixels, descriptors taken at the keypoint cells and quantized
-``(d + 1) * 127.5`` to uint8, and **6-column COLMAP keypoints** (x, y,
-scale 1, orientation, score, 0).
+pixels, descriptors taken at the keypoint cells and quantized to uint8
+by the signed encoding (``ops/interpolate.py``), and **6-column COLMAP
+keypoints** (x, y, scale 1, orientation, score, 0).
 
 Weights: a reference-trained ``.pt``/``.pth`` (``models/convert.
 load_torch_feature_model``: BatchNorms folded, norm-free heads, and the
@@ -36,6 +36,7 @@ from vit_colmap_tpu_torch.features.base_extractor import (
 from vit_colmap_tpu_torch.models.dinov2 import preprocess
 from vit_colmap_tpu_torch.models.feature_model import make_feature_model
 from vit_colmap_tpu_torch.ops.detect import nms_maxpool, quadratic_refine, top_k
+from vit_colmap_tpu_torch.ops.interpolate import quantize_descriptors_signed
 
 logger = logging.getLogger(__name__)
 
@@ -147,7 +148,7 @@ class TrainableViTExtractor(BaseExtractor):
             offs = quadratic_refine(scores, torch.stack([xs, ys], dim=-1))
         x_px = (xs + 0.5 + offs[..., 0]) * 4.0
         y_px = (ys + 0.5 + offs[..., 1]) * 4.0
-        desc_u8 = torch.clamp((desc + 1.0) * 127.5, 0, 255).to(torch.uint8)
+        desc_u8 = quantize_descriptors_signed(desc)
         return x_px, y_px, orient, top, valid, desc_u8
 
     @torch.no_grad()

@@ -75,6 +75,7 @@ from vit_colmap_tpu_torch.ops.detect import detect_keypoints, quadratic_refine
 from vit_colmap_tpu_torch.ops.interpolate import (
     apply_pca,
     bilinear_sample,
+    decode_descriptors,
     fit_pca,
     l2_normalize,
     load_pca,
@@ -302,11 +303,8 @@ class ViTExtractor(BaseExtractor):
         desc = l2_normalize(apply_pca(desc, pca_comps, pca_mean))
         desc_u8 = quantize_descriptors_signed(desc)
         if self.emit_float_desc:
-            # Match-ready f32: the uint8 round trip (decode, mask, renormalize),
-            # identical to what matching decodes from the database.
-            dq = desc_u8.float() / 127.5 - 1.0
-            dq = torch.where(valid[..., None], dq, 0.0)
-            return xy, sc, valid, desc_u8, l2_normalize(dq)
+            # Match-ready f32, as matching decodes it from the database.
+            return xy, sc, valid, desc_u8, decode_descriptors(desc_u8, valid)
         return xy, sc, valid, desc_u8
 
     def extract_batch_async(self, images_u8, packed: bool = False):

@@ -3,9 +3,9 @@
 Each wrapper takes its plain version for a tensor on the CPU, and launches
 its kernel (or raises) for a CUDA tensor.  ``launches`` counts kernel
 launches by wrapper name, so a run can show that a path went through them:
-``launches.clear()`` before it, ``launches["match_topk2"]`` after.  The
-wrappers add to it through :func:`count_launch`, which mesh slots call from
-several threads at once.
+``launches.clear()`` before it, ``launches["match_topk2"]`` after.  Every
+launch goes through ``build.launch``, which adds to it through
+:func:`count_launch`; mesh slots launch from several threads at once.
 """
 
 import threading

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from vit_colmap_tpu_torch.kernels import count_launch
+from vit_colmap_tpu_torch.kernels.build import launch
 
 MAX_DIM = 2048
 OUT_DTYPES = (torch.bfloat16, torch.float32)
@@ -89,8 +89,6 @@ def add_norm(x, branch, gamma, weight, bias, eps: float, out_dtype: torch.dtype)
     ``x_new`` is ``x`` itself."""
     if not x.is_cuda:
         raise ValueError(f"add_norm kernel runs on CUDA tensors, got {x.device}")
-    from vit_colmap_tpu_torch.kernels.build import check, library
-
     _check(x, branch, gamma, weight, bias, out_dtype)
     D = x.shape[-1]
     x_new = x if branch is None else torch.empty_like(x)
@@ -98,14 +96,8 @@ def add_norm(x, branch, gamma, weight, bias, eps: float, out_dtype: torch.dtype)
     if x.numel() == 0:
         return x_new, y
 
-    def ptr(t):  # None (a null pointer) where there is no branch
-        return None if branch is None else t.data_ptr()
-
-    with torch.cuda.device(x.device):
-        err = library().add_norm_launch(
-            x.data_ptr(), ptr(branch), ptr(gamma), weight.data_ptr(), bias.data_ptr(),
-            ptr(x_new), y.data_ptr(), x.numel() // D, D, float(eps),
-            int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream)
-    check(err, "add_norm")
-    count_launch("add_norm")
+    # Without a branch, branch, gamma and x_new go as null pointers.
+    launch("add_norm_launch", "add_norm", x, branch, gamma, weight, bias,
+           None if branch is None else x_new, y, x.numel() // D, D, float(eps),
+           int(out_dtype == torch.float32))
     return x_new, y

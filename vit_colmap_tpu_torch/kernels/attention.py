@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from vit_colmap_tpu_torch.kernels import count_launch
+from vit_colmap_tpu_torch.kernels.build import launch
 
 LOG2E = math.log2(math.e)
 CLAMP = 100.0
@@ -32,11 +32,22 @@ TMA_BOX = (64, 128, 1, 1)
 DTYPE_BYTES = {torch.bfloat16: 2, torch.float32: 4}
 
 
+def takes_attention_qkv(dim: int, num_heads: int) -> bool:
+    """Whether kernel 1 takes a model width ``dim`` split into ``num_heads``
+    heads: head dim 64 and an even head count."""
+    return dim == num_heads * 64 and num_heads % 2 == 0
+
+
+def takes_fixed_max_attention(head_dim: int) -> bool:
+    """Whether kernel 3 takes heads of ``head_dim``: at most MAX_HEAD_DIM."""
+    return head_dim <= MAX_HEAD_DIM
+
+
 def _check_layout(qkv: torch.Tensor, num_heads: int) -> int:
     if qkv.dim() != 3:
         raise ValueError(f"qkv must be (B, N, 3*D), got {tuple(qkv.shape)}")
     three_d = qkv.shape[-1]
-    if three_d % 3 or three_d // 3 != num_heads * 64 or num_heads % 2:
+    if three_d % 3 or not takes_attention_qkv(three_d // 3, num_heads):
         raise ValueError(
             "attention_qkv requires head_dim == 64 and an even head count, got "
             f"width {three_d} with {num_heads} heads"
@@ -50,7 +61,7 @@ def _check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             "q, k, v must share one (B, H, N, d) shape, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if q.shape[-1] > MAX_HEAD_DIM:
+    if not takes_fixed_max_attention(q.shape[-1]):
         raise ValueError(
             f"fixed_max_attention is specialized for head_dim <= {MAX_HEAD_DIM}, "
             f"got {q.shape[-1]}"
@@ -140,8 +151,6 @@ def _launch(q, k, v, out, sm_scale: float, name: str) -> torch.Tensor:
 
     bf16 views that TMA cannot read in place are first copied by
     :func:`tma_operand`, and a padded head dim is cut off the result."""
-    from vit_colmap_tpu_torch.kernels.build import check, library
-
     if out.device.type != "cuda":
         raise ValueError(f"{name} kernel runs on CUDA tensors, got {out.device}")
     for t in (q, k, v):
@@ -161,15 +170,9 @@ def _launch(q, k, v, out, sm_scale: float, name: str) -> torch.Tensor:
         if q.shape[-1] != d:
             target = _empty_out(q)
     strides = [s for t in (q, k, v, target) for s in t.stride()[:3]]
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library().fixed_max_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), target.data_ptr(), B, H, N,
-            q.shape[-1], (ctypes.c_longlong * 12)(*strides), float(sm_scale) * LOG2E,
-            DTYPE_BYTES[q.dtype], stream,
-        )
-    check(err, name)
-    count_launch(name)
+    launch("fixed_max_attention_launch", name, q, k, v, target, B, H, N, q.shape[-1],
+           (ctypes.c_longlong * 12)(*strides), float(sm_scale) * LOG2E,
+           DTYPE_BYTES[q.dtype])
     if target is not out:
         out.copy_(target[..., :d])
     return out

@@ -4,13 +4,11 @@ The sources under ``csrc/host/`` are host code (no CUDA kernel): the
 batched COLMAP-database writer (``libvc_db_writer.so``, bound by
 ``database/native.py``) and the image decoder (``libvc_image_io.so``,
 bound by ``utils/native_io.py``).  Each is built at first use, never at
-import, with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` into
-``_build/<key>/`` beside the package (listed in ``.gitignore``), where
-``<key>`` hashes every source and header under ``csrc/host/``, the whole
-command line and ``g++ --version``; a later process with the same three
-loads the library instead of building it again.  The compiler's output is
-kept beside the library as ``lib<name>.g++.log``, and a compile error
-raises with it.
+import, with ``g++ -O3 -shared -fPIC -std=c++17 -pthread``, through the
+build cache of ``kernels/build.py``: into ``_build/<key>/``, where ``<key>``
+hashes every source and header under ``csrc/host/``, the whole command line
+and ``g++ --version``.  The compiler's output is kept beside the library as
+``lib<name>.g++.log``, and a compile error raises with it.
 
 The sources declare the C API they call, so only runtime libraries are
 needed, linked by soname from the directory that holds them (as the JAX
@@ -30,13 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
+from vit_colmap_tpu_torch.kernels import build
 from vit_colmap_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR
 
 HOST_DIR = CSRC_DIR / "host"
@@ -53,12 +51,6 @@ def find_gxx() -> str:
     if gxx is None:
         raise Unavailable("g++ not found on PATH")
     return gxx
-
-
-@functools.cache
-def gxx_version(gxx: str) -> str:
-    return subprocess.run([gxx, "--version"], capture_output=True, text=True,
-                          check=True).stdout
 
 
 def cuda_home() -> Path:
@@ -131,65 +123,32 @@ def library_name(name: str) -> str:
     return f"libvc_{name}.so"
 
 
-def cache_key(host_dir: Path, flags: list[str], version: str) -> str:
-    """Hash of every source and header under ``host_dir``, the flags and
-    the compiler's version text."""
-    h = hashlib.sha256()
-    for src in sorted(host_dir.iterdir()):
-        if src.suffix in (".cc", ".h"):
-            h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
-    h.update("\0".join(flags).encode() + b"\0" + version.encode())
-    return h.hexdigest()[:16]
-
-
-def _command(name: str, target: Path) -> list[str]:
+def _command(name: str, out: Path) -> list[str]:
     sources, flags = sources_and_flags(name)
-    return [find_gxx(), *GXX_FLAGS, "-o", str(target), *map(str, sources), *flags]
+    return [find_gxx(), *GXX_FLAGS, "-o", str(out), *map(str, sources), *flags]
 
 
 def target_path(name: str) -> Path:
     """Where library ``name`` of these sources, flags and compiler lives."""
-    gxx = find_gxx()
-    flags = _command(name, Path(library_name(name)))[1:]
-    return BUILD_DIR / cache_key(HOST_DIR, flags, gxx_version(gxx)) / library_name(name)
+    cmd = _command(name, Path(library_name(name)))
+    key = build.cache_key(HOST_DIR, cmd[1:], build.compiler_version(cmd[0]))
+    return BUILD_DIR / key / library_name(name)
 
 
 def log_path(target: Path) -> Path:
     return target.with_name(target.name.replace(".so", ".g++.log"))
 
 
-def _start(name: str, target: Path):
-    target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f".{target.name}.{os.getpid()}")
-    cmd = _command(name, tmp)
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, cmd, tmp
-
-
-def _finish(proc, cmd: list[str], tmp: Path, target: Path) -> None:
-    output = proc.communicate()[0]
-    log_path(target).write_text(" ".join(cmd) + "\n" + output)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed ({proc.returncode}) building "
-                           f"{target.name}; log {log_path(target)}:\n{output}")
-    os.replace(tmp, target)  # atomic: concurrent processes never see half
-
-
 def build_all(names=LIBRARIES, force: bool = False) -> dict[str, float]:
     """Build every library of ``names`` not built yet (every one with
     ``force``), one g++ each, all started together; returns each build's
     seconds (0 for a cached one)."""
-    started, seconds = [], {}
+    seconds = dict.fromkeys(names, 0.0)
     t0 = time.perf_counter()
-    for name in names:
-        target = target_path(name)
-        seconds[name] = 0.0
-        if force or not target.exists():
-            started.append((name, target, *_start(name, target)))
-    for name, target, proc, cmd, tmp in started:
-        _finish(proc, cmd, tmp, target)
+    targets = {name: target_path(name) for name in names}
+    jobs = {name: build.start(functools.partial(_command, name), t, log_path(t))
+            for name, t in targets.items() if force or not t.exists()}
+    for name, target in zip(jobs, build.finish(list(jobs.values()))):
         seconds[name] = time.perf_counter() - t0
         print(f"[vit_colmap_tpu_torch] built {target.name} with g++ in "
               f"{seconds[name]:.1f} s -> {target}", flush=True)

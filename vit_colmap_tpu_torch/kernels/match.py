@@ -31,10 +31,16 @@ from __future__ import annotations
 
 import torch
 
-from vit_colmap_tpu_torch.kernels import count_launch
+from vit_colmap_tpu_torch.kernels.build import launch
 
 WIDTH_STEP = 128  # the kernels take descriptor widths that are multiples of this
 TILE_N = 128  # row tile of kernel 2's column partials
+
+
+def takes_width(dim: int) -> bool:
+    """Whether the kernels take descriptors ``dim`` wide: a multiple of
+    WIDTH_STEP."""
+    return dim % WIDTH_STEP == 0
 
 
 def similarity_plain(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
@@ -151,25 +157,13 @@ def _check_cuda(name: str, desc, masks, floats, desc_dtype: torch.dtype) -> None
     if any(t.dtype != torch.float32 for t in floats):
         raise ValueError(f"{name} kernel takes f32 row sums, norms and coef")
     P, N, D = desc[0].shape
-    if D % WIDTH_STEP:
+    if not takes_width(D):
         raise NotImplementedError(
             f"{name} kernel takes widths that are multiples of {WIDTH_STEP}, got "
             f"D={D}: match it with ops.matching.match_pairs_batched"
         )
     if P == 0 or N == 0 or desc[1].shape[1] == 0:
         raise ValueError(f"{name} kernel needs non-empty inputs")
-
-
-def _run(name: str, *args) -> None:
-    from vit_colmap_tpu_torch.kernels.build import check, library
-
-    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        err = getattr(library(), f"{name}_launch")(*ptrs, stream)
-    check(err, name)
-    count_launch(name)
 
 
 def match_topk2_colmax(
@@ -192,8 +186,8 @@ def match_topk2_colmax(
     best, second, best_idx = _row_results(P, N, d1.device)
     col_val = torch.empty(P, nt, M, dtype=torch.float32, device=d1.device)
     col_part = torch.empty(P, nt, M, dtype=torch.int32, device=d1.device)
-    _run("match_topk2_colmax", d1, d2, valid1, valid2, best, second, best_idx,
-         col_val, col_part, P, N, M, d1.shape[2])
+    launch("match_topk2_colmax_launch", "match_topk2_colmax", d1, d2, valid1, valid2,
+           best, second, best_idx, col_val, col_part, P, N, M, d1.shape[2])
     # Merge the per-row-tile column partials: the first tile holding the
     # max wins (argmax returns the first maximum), as in the reference.
     blk = torch.argmax(col_val, dim=1, keepdim=True)
@@ -211,8 +205,8 @@ def match_topk2(d1: torch.Tensor, d2: torch.Tensor, valid2: torch.Tensor):
     _check_cuda("match_topk2", (d1, d2), (valid2,), (), torch.float32)
     P, N, _ = d1.shape
     best, second, best_idx = _row_results(P, N, d1.device)
-    _run("match_topk2", d1, d2, valid2, best, second, best_idx, P, N, d2.shape[1],
-         d1.shape[2])
+    launch("match_topk2_launch", "match_topk2", d1, d2, valid2, best, second, best_idx,
+           P, N, d2.shape[1], d1.shape[2])
     return best, second, best_idx
 
 
@@ -232,8 +226,8 @@ def match_topk2_int8(a1, a2, s1, s2, inv1, inv2, coef):
                 torch.int8)
     P, N, _ = a1.shape
     best, second, best_idx = _row_results(P, N, a1.device)
-    _run("match_topk2_int8", a1, a2, s1, s2, inv1, inv2, coef, best, second,
-         best_idx, P, N, a2.shape[1], a1.shape[2])
+    launch("match_topk2_int8_launch", "match_topk2_int8", a1, a2, s1, s2, inv1, inv2,
+           coef, best, second, best_idx, P, N, a2.shape[1], a1.shape[2])
     return best, second, best_idx
 
 

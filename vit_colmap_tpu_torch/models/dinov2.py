@@ -176,9 +176,9 @@ def _use_sdpa(impl: str, n_tokens: int, device: torch.device) -> bool:
 
 class Attention(nn.Module):
     """Multi-head self-attention.  ``attn_impl`` picks the softmax, with the
-    reference's gates: "fixedmax_fused" takes kernel 1 for head_dim 64, an
-    even head count and N >= KERNEL_MIN_TOKENS; "fixedmax" takes kernel 3
-    for head_dim <= 64 and N >= KERNEL_MIN_TOKENS; otherwise (and for
+    reference's gates: "fixedmax_fused" takes kernel 1 and "fixedmax" kernel
+    3 for the head layouts each kernel takes (``takes_attention_qkv``,
+    ``takes_fixed_max_attention``) and N >= KERNEL_MIN_TOKENS; otherwise (and for
     "auto" and "flash") :func:`_use_sdpa` decides between PyTorch's fused
     attention and eager softmax."""
 
@@ -195,8 +195,7 @@ class Attention(nn.Module):
         qkv = _linear(x, self.qkv, c.dtype)
         if (
             c.attn_impl == "fixedmax_fused"
-            and head_dim == 64
-            and c.num_heads % 2 == 0
+            and attention_kernel.takes_attention_qkv(c.embed_dim, c.num_heads)
             and N >= KERNEL_MIN_TOKENS
         ):
             out = attention_kernel.attention_qkv(
@@ -206,7 +205,7 @@ class Attention(nn.Module):
         q, k, v = qkv.reshape(B, N, 3, c.num_heads, head_dim).permute(2, 0, 3, 1, 4)
         if (
             c.attn_impl == "fixedmax"
-            and head_dim <= attention_kernel.MAX_HEAD_DIM
+            and attention_kernel.takes_fixed_max_attention(head_dim)
             and N >= KERNEL_MIN_TOKENS
         ):
             out = attention_kernel.fixed_max_attention(q, k, v, head_dim**-0.5)

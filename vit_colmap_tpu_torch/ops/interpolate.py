@@ -3,7 +3,8 @@
 Counterpart of ``vit_colmap_tpu/ops/interpolate.py``: border-clamped
 bilinear sampling, an order-independent PCA fit (covariance ``eigh`` with
 canonical component signs) that can be persisted as ``.npz``, L2
-normalization and the signed uint8 descriptor encoding.
+normalization, and the uint8 descriptor codec that every module which
+stores, reads or matches descriptors goes through.
 """
 
 from __future__ import annotations
@@ -76,9 +77,21 @@ def apply_pca(features: torch.Tensor, components: torch.Tensor, mean: torch.Tens
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Rows divided by their L2 norm, floored at 1e-8 (zero rows stay zero)."""
     return x / torch.clamp_min(torch.linalg.norm(x, dim=dim, keepdim=True), 1e-8)
 
 
 def quantize_descriptors_signed(desc: torch.Tensor) -> torch.Tensor:
     """[-1, 1] descriptors -> uint8 via (d + 1) * 127.5, truncated."""
     return torch.clamp((desc + 1.0) * 127.5, 0.0, 255.0).to(torch.uint8)
+
+
+def decode_descriptors(desc_u8: torch.Tensor, valid: torch.Tensor,
+                       signed: bool = True) -> torch.Tensor:
+    """(..., N, D) uint8 descriptors -> match-ready f32 rows: ``q / 127.5 - 1``
+    for the signed encoding (``q`` itself for the unsigned one), zero where
+    ``valid`` is False, then :func:`l2_normalize`."""
+    d = desc_u8.float()
+    if signed:
+        d = d / 127.5 - 1.0
+    return l2_normalize(torch.where(valid[..., None], d, 0.0))

@@ -21,12 +21,6 @@ import torch
 from vit_colmap_tpu_torch.kernels import match as match_kernel
 
 
-def normalize_descriptors(desc: torch.Tensor) -> torch.Tensor:
-    """uint8/float descriptors -> L2-normalized float32 rows."""
-    d = desc.float()
-    return d / torch.clamp_min(torch.linalg.norm(d, dim=-1, keepdim=True), 1e-8)
-
-
 def match_pair(
     d1: torch.Tensor,  # (N, D) f32, L2-normalized rows
     d2: torch.Tensor,  # (M, D)
@@ -122,7 +116,7 @@ def get_pair_matcher(use_pallas: bool | None = None):
         return match_pairs_batched
 
     def matcher(d1, d2, v1, v2, max_ratio=0.8, max_distance=0.7, cross_check=True):
-        if d1.shape[-1] % match_kernel.WIDTH_STEP:
+        if not match_kernel.takes_width(d1.shape[-1]):
             return match_pairs_batched(d1, d2, v1, v2, max_ratio, max_distance,
                                        cross_check)
         return match_kernel.match_pairs(

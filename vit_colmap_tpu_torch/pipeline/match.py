@@ -49,10 +49,10 @@ import torch
 from vit_colmap_tpu_torch.database import TWO_VIEW_CONFIG, ColmapDatabase
 from vit_colmap_tpu_torch.database.native import open_bulk_writer
 from vit_colmap_tpu_torch.device import resolve_device
+from vit_colmap_tpu_torch.ops.interpolate import decode_descriptors
 from vit_colmap_tpu_torch.ops.matching import (
     compact_matches_device,
     get_pair_matcher,
-    normalize_descriptors,
     unpack_matches,
 )
 from vit_colmap_tpu_torch.ops.ransac import draw_uniforms, estimate_two_view_batched
@@ -70,15 +70,6 @@ from vit_colmap_tpu_torch.utils.config import MatchingConfig
 from vit_colmap_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
-
-
-def _decode_normalize_u8(desc_u8: torch.Tensor, valid: torch.Tensor, signed: bool):
-    """uint8 decode (+ signed mapping), masking and L2 normalization."""
-    d = desc_u8.float()
-    if signed:
-        d = d / 127.5 - 1.0
-    d = torch.where(valid[..., None], d, 0.0)
-    return normalize_descriptors(d)
 
 
 def _next_pow2(n: int, minimum: int = 128) -> int:
@@ -268,7 +259,7 @@ def match_exhaustive(
             rows = min(d.shape[0], n_max)
             desc[i, :rows, : d.shape[1]] = d[:rows].to(dev)
             valid[i, :c] = True
-        desc = _decode_normalize_u8(
+        desc = decode_descriptors(
             desc, valid, signed=config.descriptor_encoding == "signed"
         )
 
